@@ -4,41 +4,65 @@ on one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, each printing one line to stdout:
+Phases, each printing lines to stdout tagged with its name:
   1. device: requires CUDA, turns TF32 off, prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the inverse-Cholesky kernel from csrc/ (sm_90a);
-  3. kernel: compares the kernel with its plain torch version on the
-     card at r = 8/16/32/64, N = 4096 (random SPD systems plus an
-     all-zero system with a unit ridge and a rank-deficient one), times
-     both with CUDA events, and checks spd_solve against a float64
-     torch.linalg.solve at d = 8/32/64/128/512;
-  4. train: the port's CLI in-process, SAFER2 on the bundled ML-1M split
+  2. build: compiles both kernels from csrc/ (sm_90a), one nvcc each,
+     started together;
+  3. kernel: compares the inverse-Cholesky kernel with its plain torch
+     version on the card at r = 8/16/32/64, N = 4096 (random SPD systems
+     plus an all-zero system with a unit ridge and a rank-deficient
+     one) and times both with CUDA events;
+  4. bdot: compares the batched-dot kernel with its plain torch version
+     (chained torch.bmm) at h = 32/64/128, N = 4096, 8 dots, within 1e-4
+     of max|plain| (the f32 summation order differs); the probe of
+     phase 11 times both;
+  5. solve: spd_solve against a float64 torch.linalg.solve at
+     d = 8/32/64/128/512;
+  6. train: the port's CLI in-process, SAFER2 on the bundled ML-1M split
      at the README's dim-32 config for 10 epochs; NDCG@20 >= 0.2 and
      mean dual weight within alpha +/- 0.02 after every epoch;
-  5. dim 64: the same run at dim 64 for 3 epochs (the r = 64 kernel
+  7. serve: 3 recommend() batches of 256 held-out users from the dim-32
+     model; ids in range and outside each user's history;
+  8. dim64: the same run at dim 64 for 3 epochs (the r = 64 kernel
      path); finite tables and the dual-weight gate;
-  6. serve: 3 recommend() batches of 256 held-out users from the dim-32
-     model; ids in range and outside each user's history.
-Then a JSON line describing the kernel (launch count on the main path,
-errors, times) and, last, {"ok": true, "device": {...}}. Any failed
-check raises, so the script exits nonzero and never prints the last
-line. Without CUDA, or without the package beside it, it exits 1.
+  9. dim512: the same run at dim 512 for 10 epochs (Woodbury solves,
+     rotated direct solves, the warm eigh refresh): the quality gates,
+     finite tables, rows on the Woodbury and rotated paths, a warm
+     refresh, kernel launches at every r, then one recommend() batch of
+     256 users with the serve checks;
+ 10. synth50k: the library API on the 50k-user power-law workload at the
+     MSD config (dim 512) for 3 epochs: finite tables, rows through the
+     column-chunked wide assembly, each epoch's ms and the peak device
+     memory;
+ 11. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
+     own path, beside plain torch.bmm and the dim-512 solver's products;
+     then the inverse-Cholesky kernel against its plain version at the
+     largest shape the dim-512 path gave it, compared and timed.
+Every path's kernel launch counts are set to 0 just before it and read
+just after. Then a JSON line describing the kernels (launch counts on
+their paths, errors, times) and, last, {"ok": true, "device": {...}}.
+Any failed check raises, so the script exits nonzero and never prints
+the last line. Without CUDA, or without the package beside it, it
+exits 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ML1M = os.path.join(ROOT, "tests", "ml-1m")
 REL_TOL = 1e-4          # kernel vs plain, well-conditioned systems
 REL_TOL_RANK_DEF = 1e-3  # the rank-deficient system (ridge 1e-2)
 SOLVE_RTOL, SOLVE_ATOL = 2e-3, 2e-4   # the JAX package's spd_solve bounds
+BDOT_REL_TOL = 1e-4     # bdot kernel vs chained torch.bmm, of max|plain|
 NDCG20_MIN = 0.2
 ALPHA = 0.3
 DUAL_TOL = 0.02
@@ -56,22 +80,6 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def spd_batch(gen, n: int, r: int, device):
     """Well-conditioned SPD systems X X^T / (2r) + 0.1 I and ridges."""
     import torch
@@ -84,6 +92,8 @@ def spd_batch(gen, n: int, r: int, device):
 
 def phase_kernel(block_chol, device):
     import torch
+
+    from safer2_recommender_tpu_torch.probes import cuda_ms
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -124,17 +134,27 @@ def phase_kernel(block_chol, device):
 
 
 def time_at(block_chol, device, shape):
-    """Kernel and plain times at one [N, r, r] shape, in turns plain,
-    kernel, kernel, plain; the better of each pair."""
+    """The kernel against its plain version at one [N, r, r] shape
+    (relative error of each system within REL_TOL), then both timed in
+    turns plain, kernel, kernel, plain; the better of each pair."""
     import torch
+
+    from safer2_recommender_tpu_torch.probes import cuda_ms
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     a, ridge = spd_batch(gen, shape[0], shape[1], device)
     k = lambda: block_chol.chol_inverse_small(a, ridge)
     p = lambda: block_chol.chol_inverse_small_ref(a, ridge)
+    got, want = k(), p()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{list(shape)}: nonfinite output")
+    diff = (got - want).abs().amax(dim=(1, 2))
+    rel = float((diff / want.abs().amax(dim=(1, 2))).max())
+    check(rel <= REL_TOL, f"{list(shape)}: rel err {rel} > {REL_TOL}")
     p1, k1, k2, p2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+    return {"max_abs_err": float(diff.max()), "max_rel_err": rel,
+            "ms": min(k1, k2), "plain_ms": min(p1, p2)}
 
 
 def phase_solve(block_chol, device):
@@ -188,7 +208,57 @@ def check_dual(res, tag: str) -> None:
           f"{res.mean_weights}")
 
 
-def phase_serve(model):
+def phase_bdot(bdot, device):
+    """The batched-dot kernel against chained torch.bmm on the same
+    inputs; these launches compare and do not count toward the path
+    (the probe times both)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    n, n_dots, scale = 4096, 8, 1e-2
+    by_h = {}
+    for h in bdot.SIZES:
+        x = torch.randn((n, h, h), generator=gen, device=device) * 0.1
+        got = bdot.bdot(x, n_dots, scale)
+        want = bdot.bdot_ref(x, n_dots, scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"bdot h={h}: nonfinite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        check(rel <= BDOT_REL_TOL, f"bdot h={h}: rel err {rel} > "
+              f"{BDOT_REL_TOL}")
+        by_h[h] = dict(max_abs_err=err, rel_err=rel)
+        say("bdot", f"h={h} N={n} dots={n_dots}: max abs err {err:.3e}, "
+            f"rel err {rel:.3e} of max|plain| (tol {BDOT_REL_TOL:g})")
+    return by_h
+
+
+@contextlib.contextmanager
+def recorded_chol_shapes(block_chol):
+    """Record the [N, r, r] shapes the wrapped path hands the kernel
+    wrapper (the shim counts nothing; the wrapper's LAUNCHES does)."""
+    shapes, wrapper = [], block_chol.chol_inverse_small
+
+    def recording(a, ridge):
+        shapes.append(tuple(a.shape))
+        return wrapper(a, ridge)
+
+    block_chol.chol_inverse_small = recording
+    try:
+        yield shapes
+    finally:
+        block_chol.chol_inverse_small = wrapper
+
+
+def finite_tables(state) -> bool:
+    import torch
+
+    return bool(torch.isfinite(state.user_emb).all()
+                and torch.isfinite(state.item_emb).all())
+
+
+def phase_serve(model, batches: int, phase: str = "serve"):
     import numpy as np
     import torch
 
@@ -197,7 +267,7 @@ def phase_serve(model):
     hist = Dataset.from_csv(os.path.join(ML1M, "validation_tr.csv"))
     users = np.unique(hist.user_ids)
     served, secs = 0, 0.0
-    for i in range(3):
+    for i in range(batches):
         sel = users[i * 256:(i + 1) * 256]
         m = np.isin(hist.user_ids, sel)
         batch = Dataset(hist.user_ids[m], hist.item_ids[m])
@@ -215,10 +285,105 @@ def phase_serve(model):
             check(not any((u, it) in seen for it in row),
                   f"batch {i}: user {u} was recommended a history item")
         served += sel.size
-    say("serve", f"3 batches x 256 users, k=10: {served} users in "
+    say(phase, f"{batches} batch(es) x 256 users, k=10: {served} users in "
         f"{secs * 1000:.1f} ms = {served / secs:.1f} users/s "
         "(fold-in + full-catalog scoring + exact top-k)")
     return served / secs
+
+
+def phase_dim512(cli, block_chol, woodbury):
+    """ML-1M at dim 512 through the CLI: the Woodbury and rotated paths,
+    the warm refresh, and the r = 8..64 kernel launches they make."""
+    import torch
+
+    from safer2_recommender_tpu_torch.probes import cuda_ms
+
+    torch.cuda.reset_peak_memory_stats()
+    block_chol.reset_launches()
+    woodbury.reset_solve_paths()
+    with recorded_chol_shapes(block_chol) as shapes:
+        res = train(cli, 512, 10)
+    launches = dict(block_chol.LAUNCHES)
+    paths = dict(woodbury.SOLVE_PATHS)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(shapes) == sum(launches.values()),
+          "dim 512: launches do not match calls")
+    check(finite_tables(res.model.state), "dim 512: nonfinite tables")
+    ndcg20 = float(res.metrics.mean_ndcg()[2])
+    check(ndcg20 >= NDCG20_MIN, f"dim 512: NDCG@20 {ndcg20} < {NDCG20_MIN}")
+    check_dual(res, "dim 512")
+    check(paths["woodbury"] > 0 and paths["rotated"] > 0,
+          f"dim 512: a solve path was not taken: {paths}")
+    check(paths["refresh_warm"] > 0, f"dim 512: no warm refresh: {paths}")
+    check(all(launches[r] > 0 for r in block_chol.KERNEL_SIZES),
+          f"dim 512: no kernel launch at some r: {launches}")
+    say("dim512", f"ML-1M SAFER2 dim 512, 10 epochs: NDCG@20 {ndcg20:.4f} "
+        f"(gate {NDCG20_MIN}); mean dual weight "
+        f"{[round(w, 4) for w in res.mean_weights]}; epoch ms "
+        f"{res.epoch_ms}; solve paths (padded rows; refreshes) {paths}; "
+        f"kernel launches by r {launches}; largest kernel shape "
+        f"{list(max(shapes, key=lambda s: s[0] * s[1] * s[2]))}; peak "
+        f"device memory {peak} B")
+    # the two eigh branches on the trained model's own Gramian and basis
+    # (tol 1 forces the warm one); outside the counted run
+    state = res.model.state
+    eigh_ms = {
+        "cold": cuda_ms(lambda: torch.linalg.eigh(state.item_gramian)),
+        "warm": cuda_ms(lambda: woodbury.refresh_eigh(
+            state.item_gramian, state.eig_qu, 1.0))}
+    say("dim512", f"eigh of the [512, 512] Gramian: cold (torch.linalg.eigh)"
+        f" {eigh_ms['cold']:.3f} ms, warm refresh (4 x [128, 128] blocks) "
+        f"{eigh_ms['warm']:.3f} ms")
+    block_chol.reset_launches()
+    serve = phase_serve(res.model, 1, "dim512")
+    return dict(res=res, launches=launches, shapes=shapes, paths=paths,
+                serve=serve, serve_launches=block_chol.total_launches(),
+                eigh_ms=eigh_ms, peak_bytes=peak)
+
+
+def phase_synth(block_chol, woodbury, device, epochs=3):
+    """The library API on the MSD-shaped synthetic workload (50k x 40k,
+    dim 512) at the MSD config (bench.py's north star): finite tables and
+    rows through the wide (column-chunked) assembly; epoch ms and peak
+    device memory."""
+    import torch
+
+    from safer2_recommender_tpu_torch import get_model
+    from safer2_recommender_tpu_torch.probes import epoch_profile
+
+    t0 = time.perf_counter()
+    ds, dd, cfg = epoch_profile.workload("synth50k", device)
+    setup_s = time.perf_counter() - t0
+    model = get_model("safer2", cfg, ds.num_users, ds.num_items,
+                      device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_chol.reset_launches()
+    woodbury.reset_solve_paths()
+    model.initialize(dd)
+    epoch_ms, weights = [], []
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.train_epoch(dd)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t1) * 1000)
+        weights.append(model.get_mean_weight())
+    launches = dict(block_chol.LAUNCHES)
+    paths = dict(woodbury.SOLVE_PATHS)
+    peak = torch.cuda.max_memory_allocated()
+    check(finite_tables(model.state), "synth50k: nonfinite tables")
+    check(paths["wide"] > 0, f"synth50k: no wide rows: {paths}")
+    check(paths["woodbury"] > 0, f"synth50k: no Woodbury rows: {paths}")
+    check(sum(launches.values()) > 0, "synth50k: no kernel launch")
+    say("synth50k", f"{ds.num_users} users x {ds.num_items} items, "
+        f"{ds.nnz} tuples, dim {cfg.dim}, {epochs} epochs: first epoch "
+        f"{epoch_ms[0]} ms, then {epoch_ms[1:]} ms (synchronized host "
+        f"clock); data + bucketing {setup_s:.1f} s; mean dual weight "
+        f"{weights}; solve paths (padded rows; refreshes) {paths}; kernel "
+        f"launches by r {launches}; peak device memory {peak} B")
+    return dict(epoch_ms=epoch_ms, paths=paths, launches=launches,
+                peak_bytes=peak)
 
 
 def main() -> int:
@@ -235,7 +400,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from safer2_recommender_tpu_torch import cli
-    from safer2_recommender_tpu_torch.ops import block_chol
+    from safer2_recommender_tpu_torch.ops import bdot, block_chol, woodbury
+    from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -254,33 +420,26 @@ def main() -> int:
         f"{torch.get_float32_matmul_precision()}")
 
     t0 = time.perf_counter()
-    block_chol.build_kernel()
-    say("build", f"chol_inverse.cu built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(block_chol.build_kernel), ex.submit(bdot.build_kernel)]
+        for f in builds:
+            f.result()
+    say("build", f"chol_inverse.cu and bdot.cu built (in parallel) and "
+        f"loaded in {time.perf_counter() - t0:.1f} s")
 
     by_r = phase_kernel(block_chol, device)
+    by_h = phase_bdot(bdot, device)
     phase_solve(block_chol, device)
 
-    # record the shapes the main path hands the kernel (the shim counts
-    # nothing; the wrapper's own LAUNCHES does)
-    shapes, wrapper = [], block_chol.chol_inverse_small
-
-    def recording(a, ridge):
-        shapes.append(tuple(a.shape))
-        return wrapper(a, ridge)
-
-    block_chol.chol_inverse_small = recording
     block_chol.reset_launches()
-    try:
+    with recorded_chol_shapes(block_chol) as shapes:
         res = train(cli, 32, 10)
-    finally:
-        block_chol.chol_inverse_small = wrapper
-    main_launches = block_chol.total_launches()
-    check(len(shapes) == main_launches, "dim 32: launches do not match calls")
+    dim32_launches = block_chol.total_launches()
+    check(len(shapes) == dim32_launches, "dim 32: launches do not match calls")
     state = res.model.state
     check(state.user_emb.is_cuda and state.item_emb.is_cuda,
           "dim 32: model tables are not on the GPU")
-    check(main_launches > 0, "dim 32: the kernel was never launched")
+    check(dim32_launches > 0, "dim 32: the kernel was never launched")
     ndcg20 = float(res.metrics.mean_ndcg()[2])
     check(ndcg20 >= NDCG20_MIN, f"dim 32: NDCG@20 {ndcg20} < {NDCG20_MIN}")
     check_dual(res, "dim 32")
@@ -288,29 +447,45 @@ def main() -> int:
         f"(gate {NDCG20_MIN}); mean dual weight per epoch "
         f"{[round(w, 4) for w in res.mean_weights]} (gate {ALPHA} +/- "
         f"{DUAL_TOL}); epoch ms {res.epoch_ms}; kernel launches "
-        f"{main_launches} by r {dict(block_chol.LAUNCHES)}")
+        f"{dim32_launches} by r {dict(block_chol.LAUNCHES)}")
 
     block_chol.reset_launches()
-    users_per_s = phase_serve(res.model)
-    main_launches += block_chol.total_launches()
+    users_per_s = phase_serve(res.model, 3)
+    serve_launches = block_chol.total_launches()
+    check(serve_launches > 0, "serve: the kernel was never launched")
 
     block_chol.reset_launches()
     res64 = train(cli, 64, 3)
-    s64 = res64.model.state
-    check(bool(torch.isfinite(s64.user_emb).all()
-               and torch.isfinite(s64.item_emb).all()),
-          "dim 64: nonfinite tables")
+    check(finite_tables(res64.model.state), "dim 64: nonfinite tables")
     check(block_chol.LAUNCHES[64] > 0, "dim 64: no r = 64 kernel launch")
     check_dual(res64, "dim 64")
     say("dim64", f"ML-1M SAFER2 dim 64, 3 epochs: NDCG@20 "
         f"{float(res64.metrics.mean_ndcg()[2]):.4f}; mean dual weight "
         f"{[round(w, 4) for w in res64.mean_weights]}; epoch ms "
         f"{res64.epoch_ms}; kernel launches by r {dict(block_chol.LAUNCHES)}")
+    dim64_launches = block_chol.total_launches()
+    del res64
 
-    main_shape = max(shapes)            # the U sweep's [N, 32, 32]
+    d512 = phase_dim512(cli, block_chol, woodbury)
+    check(d512["serve_launches"] > 0,
+          "dim512 serve: the kernel was never launched")
+    ndcg512 = float(d512.pop("res").metrics.mean_ndcg()[2])
+    shapes512 = d512.pop("shapes")
+
+    synth = phase_synth(block_chol, woodbury, device)
+
+    bdot.reset_launches()
+    probe = bdot_probe.run(device=device)
+    probe_launches = bdot.LAUNCHES
+    check(probe_launches > 0, "probe: the bdot kernel was never launched")
+
+    main_shape = max(shapes512, key=lambda s: s[0] * s[1] * s[2])
     main_t = time_at(block_chol, device, main_shape)
-    say("kernel", f"main-path shape {list(main_shape)}: kernel "
+    say("kernel", f"largest dim-512 main-path shape {list(main_shape)}: "
+        f"max abs err {main_t['max_abs_err']:.3e}, max rel err "
+        f"{main_t['max_rel_err']:.3e} (tol {REL_TOL:g}); kernel "
         f"{main_t['ms']:.4f} ms, plain torch {main_t['plain_ms']:.4f} ms")
+    probe_h = {row["h"]: row for row in probe["bdot"]}
     print(json.dumps({"kernels": [{
         "name": "chol_inverse",
         "route": "cuda",
@@ -319,14 +494,38 @@ def main() -> int:
                      "(_leaf_lane/_leaf_kernel); "
                      "safer2_recommender_tpu/ops/block_chol.py:163 "
                      "(_lane_matmul/_lane_matmul_kernel)"),
-        "launches": main_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in by_r.values()),
+        "launches": sum(d512["launches"].values()),
+        "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
+                           + [main_t["max_abs_err"]]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "shape": list(main_shape),
+        "launches_by_path": {
+            "ml1m_dim32": dim32_launches, "serve_dim32": serve_launches,
+            "ml1m_dim64": dim64_launches,
+            "ml1m_dim512": d512["launches"],
+            "serve_dim512": d512["serve_launches"],
+            "synth50k_dim512": synth["launches"]},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
+        "ml1m_dim512_ndcg20": ndcg512,
+        "ml1m_dim512": d512,
+        "synth50k": synth,
+    }, {
+        "name": "bdot",
+        "route": "cuda",
+        "source": "safer2_recommender_tpu_torch/csrc/bdot.cu",
+        "replaces": "scripts/probe_bdot.py:27 (pallas_bdot)",
+        "launches": probe_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in by_h.values()),
+        "ms": probe_h[128]["ms"],
+        "plain_ms": probe_h[128]["plain_ms"],
+        "shape": [4096, 128, 128],
+        "by_h": {str(h): dict(v, ms=probe_h[h]["ms"],
+                              plain_ms=probe_h[h]["plain_ms"])
+                 for h, v in by_h.items()},
+        "probe": probe,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

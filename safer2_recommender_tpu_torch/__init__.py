@@ -5,10 +5,11 @@ The JAX package beside this one is the reference each part of the port
 is held against. This package imports torch and numpy, never jax and
 never ``safer2_recommender_tpu`` (whose ``__init__`` imports jax). Its
 module names mirror the JAX package's, so each counterpart is easy to
-find. Ported so far: SAFER2 from CSV to metrics and recommendations on
-the direct-solve path (dim < 128), with the batched small SPD solves
-on a hand-written CUDA kernel (``csrc/chol_inverse.cu``). ROADMAP.md
-lists what is still to port.
+find. Ported so far: SAFER2 from CSV to metrics and recommendations at
+every dim (direct, Woodbury, rotated and wide solve paths), with the
+batched small SPD solves on a hand-written CUDA kernel
+(``csrc/chol_inverse.cu``) and the batched-dot probe's kernel
+(``csrc/bdot.cu``). ROADMAP.md lists what is still to port.
 
 Public entry points:
   Dataset, DeviceData, FoldInData   data layer

@@ -7,9 +7,9 @@ tools/run_model.cc:129-231) so a user of the reference can port commands
 1:1. Defaults equal the reference defaults.
 
 Fields of unported features (``use_cg``, ``block_size``,
-``eig_refresh_tol``, ``block_interleaved``, ``eval_fold_in_epochs``) stay
-so a JAX Config's values carry over unchanged; the port raises
-``NotImplementedError`` where one would change the computation.
+``block_interleaved``, ``eval_fold_in_epochs``) stay so a JAX Config's
+values carry over unchanged; the port raises ``NotImplementedError``
+where one would change the computation.
 """
 
 from __future__ import annotations
@@ -75,8 +75,9 @@ class Config:
     # Fold-in epochs for the blockwise (++) models' evaluation (not
     # ported; the reference hard-codes 8, ialspp.h:152).
     eval_fold_in_epochs: int = 8
-    # Warm-started eigh refresh tolerance of the Woodbury path (not
-    # ported; ops/woodbury.py in the JAX package).
+    # Warm-started eigh refresh tolerance of the Woodbury path at
+    # dim >= 256 (ops/woodbury.py::refresh_eigh); 0 takes a full eigh
+    # every sweep.
     eig_refresh_tol: float = 8e-2
     # Reference-order blockwise training of the ++ models (not ported).
     block_interleaved: bool = False

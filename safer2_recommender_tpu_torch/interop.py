@@ -18,11 +18,17 @@ from safer2_recommender_tpu_torch.models.base import Recommender
 
 
 def state_from_jax(exported: dict, model: Recommender, dd: DeviceData,
-                   steps: int = 0) -> None:
+                   steps: int = 0, eig=None) -> None:
     """Set ``model.state`` from ``exported`` (keys user_emb, item_emb,
     user_loss, dual_weight, xi, original id space), reordered through
     ``dd``'s solver order; ``item_gramian`` is recomputed and ``steps``
-    set (0 for a freshly initialized JAX model)."""
+    set (0 for a freshly initialized JAX model).
+
+    ``eig=(qu, qv)``, numpy [dim, dim] each, carries the JAX model's warm
+    Woodbury eigenbases (its ``state.eig_qu`` / ``state.eig_qv``), so a
+    trained state's next epoch refreshes from the same bases. Without it
+    the bases are the identity, as in a fresh JAX model. They live in
+    the embedding space, so no reordering applies."""
     uo = dd.user_order.cpu().numpy()
     io = dd.item_order.cpu().numpy()
     dev = model.device
@@ -35,6 +41,16 @@ def state_from_jax(exported: dict, model: Recommender, dd: DeviceData,
         # solver slot j holds original id order[j]
         return torch.from_numpy(np.ascontiguousarray(x[order])).to(dev)
 
+    dim = model.cfg.dim
+    if eig is None:
+        qu = qv = torch.eye(dim, device=dev)
+    else:
+        qu, qv = (torch.from_numpy(np.array(q, dtype=np.float32)).to(dev)
+                  for q in eig)
+        if qu.shape != (dim, dim) or qv.shape != (dim, dim):
+            raise ValueError(f"eig bases must be [{dim}, {dim}], got "
+                             f"{tuple(qu.shape)} and {tuple(qv.shape)}")
+
     model._note_perms(dd)
     item_emb = rows("item_emb", io)
     model.state = model.state.replace(
@@ -46,4 +62,6 @@ def state_from_jax(exported: dict, model: Recommender, dd: DeviceData,
         xi=torch.tensor(float(exported["xi"]), dtype=torch.float32,
                         device=dev),
         steps=steps,
+        eig_qu=qu,
+        eig_qv=qv,
     )

@@ -56,7 +56,7 @@ def _dd_fingerprint(dd: DeviceData) -> Tuple[int, ...]:
 class MFState:
     """Model state. Tables and per-user vectors are in solver order.
     The JAX package's PRNG key lives on the model as a
-    ``torch.Generator``; its Woodbury eigenbases are not ported."""
+    ``torch.Generator``."""
 
     user_emb: torch.Tensor      # [num_users, dim]
     item_emb: torch.Tensor      # [num_items, dim]
@@ -66,6 +66,11 @@ class MFState:
     xi: torch.Tensor            # 0-d smoothed-quantile estimate
     steps: int                  # epochs trained (selects SAFER2's
                                 # Initialize-time xi warm start)
+    eig_qu: torch.Tensor        # [dim, dim] warm eigenbasis of the user
+                                # sweep's shared Gramian (Woodbury
+                                # refresh, ops/woodbury.py::refresh_eigh)
+    eig_qv: torch.Tensor        # [dim, dim] warm eigenbasis of the item
+                                # sweep's shared Gramian
 
     def replace(self, **kw) -> "MFState":
         return dataclasses.replace(self, **kw)
@@ -103,6 +108,8 @@ class Recommender:
                                    device=self.device),
             xi=torch.zeros((), device=self.device),
             steps=0,
+            eig_qu=torch.eye(cfg.dim, device=self.device),
+            eig_qv=torch.eye(cfg.dim, device=self.device),
         )
         self._user_perm = self._item_perm = None
         self._user_order = self._item_order = None
@@ -194,7 +201,8 @@ class Recommender:
     def _remap_state_to(self, dd: DeviceData) -> None:
         """Gather per-row state from the remembered solver order into
         ``dd``'s: new slot j holds original id dd.*_order[j], which sat
-        at old slot old_perm[dd.*_order[j]]."""
+        at old slot old_perm[dd.*_order[j]]. The [dim, dim] leaves
+        (Gramian, eigenbases) are permutation-invariant and stay."""
         gu = self._user_perm[dd.user_order]
         gi = self._item_perm[dd.item_order]
         s = self.state
@@ -444,12 +452,15 @@ class SaferFamilyMixin:
                             torch.arange(dd.num_items, device=dd.device))
         return ur, ir
 
-    def _step_u(self, ue, item_emb, gramian, buckets, dual, pre_list=None):
+    def _step_u(self, ue, item_emb, gramian, buckets, dual, pre_list=None,
+                q_prev=None):
         """Weighted mean-normalized exact U-solves (reference
-        safer2.h:104-163). Returns the new table."""
+        safer2.h:104-163). Returns (new table, new eigenbasis or None)."""
         cfg = self.cfg
         reg = self._user_reg()
-        woodbury.maybe_eigh(gramian, cfg.dim, use_cg=cfg.use_cg)
+        eig = woodbury.maybe_eigh(gramian, cfg.dim, use_cg=cfg.use_cg,
+                                  q_prev=q_prev,
+                                  refresh_tol=cfg.eig_refresh_tol)
 
         def params_fn(b, pre=None):
             w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
@@ -457,32 +468,37 @@ class SaferFamilyMixin:
                 item_emb, b, torch.full((b.n_rows,), reg, device=ue.device),
                 cfg.uobs_weight, w, pre=pre)
 
-        return common.solve_sweep(ue, buckets, params_fn, gramian,
-                                  use_cg=cfg.use_cg, pre_list=pre_list)
+        out = common.solve_sweep(ue, buckets, params_fn, gramian, eig=eig,
+                                 use_cg=cfg.use_cg, pre_list=pre_list)
+        return out, (eig[0] if eig is not None else None)
 
-    def _step_v(self, v, user_emb, dd: DeviceData, dual):
+    def _step_v(self, v, user_emb, dd: DeviceData, dual, q_prev=None):
         """Dual-weighted exact V-solves (reference safer2.h:166-221). The
         weighted Gramian U^T diag(z) U spans the full table incl. id
-        gaps and is recomputed every call."""
+        gaps and is recomputed every call. Returns (new table, new
+        eigenbasis or None)."""
         cfg = self.cfg
         w_gram = user_emb.T @ (user_emb * dual[:, None])
         norm_dual = torch.where(
             dd.user_hist_size > 0,
             dual / dd.user_hist_size.clamp(min=1.0),
             torch.zeros_like(dual))
-        woodbury.maybe_eigh(w_gram, cfg.dim, use_cg=cfg.use_cg)
+        eig = woodbury.maybe_eigh(w_gram, cfg.dim, use_cg=cfg.use_cg,
+                                  q_prev=q_prev,
+                                  refresh_tol=cfg.eig_refresh_tol)
 
         def params_fn(b, pre=None):
             reg = self._item_reg(dd.item_reg, b.row_ids)
             return common.params_weighted_item(
                 user_emb, b, reg, cfg.uobs_weight, norm_dual)
 
-        return common.solve_sweep(v, dd.by_item, params_fn, w_gram,
-                                  use_cg=cfg.use_cg)
+        out = common.solve_sweep(v, dd.by_item, params_fn, w_gram, eig=eig,
+                                 use_cg=cfg.use_cg)
+        return out, (eig[0] if eig is not None else None)
 
     def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
         """StepU with weight 1.0 (reference safer2.h:246-252)."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
         ones = torch.ones((fold.n_pad,), device=self.device)
         return self._step_u(ue, state.item_emb, state.item_gramian,
-                            fold.by_user, ones)
+                            fold.by_user, ones, q_prev=state.eig_qu)[0]

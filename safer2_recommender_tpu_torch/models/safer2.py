@@ -18,17 +18,12 @@ from safer2_recommender_tpu_torch.data.dataset import DeviceData
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin, _log)
-from safer2_recommender_tpu_torch.ops import quantile, smoothing, woodbury
+from safer2_recommender_tpu_torch.ops import quantile, smoothing
 
 
 class SAFER2(SaferFamilyMixin, Recommender):
     name = "safer2"
     _loss_lags_one_epoch = True
-
-    def __init__(self, cfg, num_users: int, num_items: int, device="cpu"):
-        if cfg.dim >= woodbury.MIN_DIM:
-            raise NotImplementedError(woodbury.WOODBURY_NOT_PORTED)
-        super().__init__(cfg, num_users, num_items, device=device)
 
     def _log_epoch_lines(self) -> None:
         # reference safer2.h:300-301, :332
@@ -63,6 +58,7 @@ class SAFER2(SaferFamilyMixin, Recommender):
         u, v = state.user_emb, state.item_emb
         gram = state.item_gramian
         dual, xi = state.dual_weight, state.xi
+        eq_u, eq_v = state.eig_qu, state.eig_qv
         loss = state.user_loss
         if cfg.pd_iterations == 0:
             # the reference still runs the trailing ComputeXi on the
@@ -79,12 +75,17 @@ class SAFER2(SaferFamilyMixin, Recommender):
                 smoothing.dual_weight(loss, xi, cfg.bandwidth,
                                       cfg.use_epanechnikov),
                 dual)
-            u = self._step_u(u, v, gram, dd.by_user, dual, pre_list=pre)
-            v = self._step_v(v, u, dd, dual)
+            u, qn = self._step_u(u, v, gram, dd.by_user, dual,
+                                 pre_list=pre, q_prev=eq_u)
+            eq_u = qn if qn is not None else eq_u
+            del pre     # the loss pass's kept slabs: the V sweep frees them
+            v, qn = self._step_v(v, u, dd, dual, q_prev=eq_v)
+            eq_v = qn if qn is not None else eq_v
             gram = v.T @ v
         return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
                              user_loss=loss, dual_weight=dual, xi=xi,
-                             steps=state.steps + 1)
+                             steps=state.steps + 1, eig_qu=eq_u,
+                             eig_qv=eq_v)
 
     def initialize(self, dd: DeviceData) -> None:
         """Reference safer2.h:819-838. The loss/xi warm start runs at the

@@ -1,18 +1,20 @@
 """Build-at-first-use of the port's native libraries, loaded with ctypes.
 
-Two libraries are built here, both from sources in the repository:
+The libraries built here all come from sources in the repository:
 
 * the CSV reader, from the JAX package's ``native/csv_reader.cc``, read
   by path so one C++ source serves both packages (importing
   ``safer2_recommender_tpu`` would import jax);
-* the CUDA kernels under ``csrc/``, compiled with ``nvcc`` for
-  ``sm_90a`` into a shared library with a plain C interface.
+* the CUDA kernels under ``csrc/``, each compiled with ``nvcc`` for
+  ``sm_90a`` into a shared library of its own with a plain C interface
+  (``chol_inverse.cu``, ``bdot.cu``).
 
 Each library lands in ``.build/torch_kernels/<name>-<hash>/`` beside the
 package (git-ignored), keyed by a hash of its sources and build command,
 so an edited source rebuilds and an unchanged one is reused. The
-compiler writes to a process-unique name that is published with an
-atomic rename: a concurrent process never loads a half-written file.
+compiler writes to a name unique to its process and thread that is
+published with an atomic rename: a concurrent process or thread never
+loads a half-written file, so builds need no lock and run side by side.
 """
 
 from __future__ import annotations
@@ -33,8 +35,6 @@ CSV_READER_SRC = os.path.join(_REPO_DIR, "safer2_recommender_tpu", "native",
 CSV_READER_FLAGS = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
                     "-lpthread"]
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-
-_lock = threading.Lock()
 
 
 class BuildError(RuntimeError):
@@ -60,22 +60,20 @@ def build_shared(name: str, sources: Sequence[str],
             raise BuildError(f"{name}: source {src} not found")
     out_dir = os.path.join(BUILD_DIR, f"{name}-{_digest(sources, compiler)}")
     out = os.path.join(out_dir, f"lib{name}.so")
-    with _lock:
-        if os.path.exists(out):
-            return out
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = list(compiler) + ["-o", tmp] + list(sources)
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=600)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise BuildError(f"{name}: {' '.join(cmd)} failed: {e}") from e
-        if res.returncode != 0:
-            raise BuildError(
-                f"{name}: {' '.join(cmd)} exited {res.returncode}:\n"
-                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
+    if os.path.exists(out):
+        return out
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = list(compiler) + ["-o", tmp] + list(sources)
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise BuildError(f"{name}: {' '.join(cmd)} failed: {e}") from e
+    if res.returncode != 0:
+        raise BuildError(
+            f"{name}: {' '.join(cmd)} exited {res.returncode}:\n"
+            f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
     return out
 
 

@@ -1,5 +1,5 @@
 """Normal-equation assembly over padded buckets (the counterpart of
-``safer2_recommender_tpu/ops/assemble.py``, narrow path).
+``safer2_recommender_tpu/ops/assemble.py``).
 
 For a bucket of N rows whose histories are padded to L columns,
 
@@ -10,34 +10,38 @@ Pad rows carry the out-of-bounds id ``num_rows``: JAX drops writes to
 it and clamps reads of it, torch raises, so every read or write here
 masks or clamps pad rows first. Buckets whose gathered slab would not
 fit in memory ("wide", zipf-head histories) stream through column
-chunks in the JAX package; that path is not ported yet.
+chunks (``wide_assemble``, ``wide_obs``) and are never gathered whole.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
 from safer2_recommender_tpu_torch.data.dataset import Bucket
 
 WIDE_SLAB_BYTES = 768 << 20
+WIDE_CHUNK = 4096
 
 WIDE_NOT_PORTED = (
-    "a bucket's gathered history slab exceeds WIDE_SLAB_BYTES, which "
-    "takes the column-chunked (wide) assembly in the JAX package; it is "
-    "not ported to PyTorch yet (ROADMAP Queue 1 item 13)")
+    "a bucket's gathered history slab exceeds WIDE_SLAB_BYTES: it streams "
+    "through wide_assemble / wide_obs only; the streamed forms of the "
+    "CVaR-MF and ++ models (wide_matvec, wide_gram_resid) are not ported "
+    "to PyTorch yet (ROADMAP Queue 1 item 13, with items 10 and 11)")
 
 
 def is_wide(bucket: Bucket, dim: int) -> bool:
-    """Would the JAX package stream this bucket through column chunks?
-    Only when the *width* is the problem (width > dim keeps it off the
-    Woodbury path; narrow slabs are bounded by build-time chunking)."""
+    """Stream this bucket through column chunks? Only when the *width*
+    is the problem (width > dim keeps it off the Woodbury path; narrow
+    slabs are bounded by build-time chunking)."""
     return bucket.width > dim and (
         bucket.n_rows * bucket.width * (dim + 1) * 4 > WIDE_SLAB_BYTES)
 
 
 def _require_narrow(bucket: Bucket, dim: int) -> None:
+    """A whole-bucket gather of a wide bucket would materialize the slab
+    that streaming exists to avoid."""
     if is_wide(bucket, dim):
         raise NotImplementedError(WIDE_NOT_PORTED)
 
@@ -88,6 +92,70 @@ def row_sums(emb: torch.Tensor,
 def rowwise_dot(emb: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """Per-slot dots: [N, L, d] x [N, d] -> [N, L]."""
     return (emb * vec[:, None, :]).sum(dim=2)
+
+
+# --------------------------------------------------------------------------
+# Column-chunked ("wide") assembly for very long histories
+# --------------------------------------------------------------------------
+
+
+def _wide_chunks(table: torch.Tensor, vec: Optional[torch.Tensor],
+                 bucket: Bucket) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
+                                                   Optional[torch.Tensor]]]:
+    """Yield ``(emb [N, W, d] masked, mask [N, W], extra [N, W] or None)``
+    for consecutive column chunks of ``bucket`` (``extra[n, l] =
+    vec[col_ids[n, l]]``, masked). The chunk width is ``WIDE_CHUNK``,
+    halved until one chunk's gathered slab fits ``WIDE_SLAB_BYTES`` (a
+    bucket with dim < width <= WIDE_CHUNK can be wide while one
+    full-width chunk would gather the whole slab); the last chunk may be
+    narrower."""
+    n, l = bucket.n_rows, bucket.width
+    w = min(WIDE_CHUNK, l)
+    d_aug = table.shape[1] + (0 if vec is None else 1)
+    while w > 256 and n * w * d_aug * 4 > WIDE_SLAB_BYTES:
+        w = (w + 1) // 2
+    for off in range(0, l, w):
+        cols = bucket.col_ids[:, off:off + w]
+        pos = torch.arange(off, off + cols.shape[1],
+                           device=bucket.length.device)
+        mask = (pos[None, :] < bucket.length[:, None]).to(torch.float32)
+        emb = table[cols] * mask[..., None].to(table.dtype)
+        extra = None if vec is None else (
+            vec[cols].to(torch.float32) * mask)
+        yield emb, mask, extra
+
+
+def wide_assemble(table: torch.Tensor, bucket: Bucket,
+                  extra_vec: Optional[torch.Tensor] = None,
+                  row_coef: Optional[torch.Tensor] = None,
+                  init_a: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed ``(sum_h wt v v^T, sum_h wt v)`` over column chunks with
+    ``wt = mask`` (or ``extra[col] * mask`` when ``extra_vec`` is given),
+    times ``row_coef`` ([N]) when given; ``init_a`` ([N, d, d]) seeds the
+    accumulator (the c1*G term), which is updated in place."""
+    n, d = bucket.n_rows, table.shape[1]
+    a = (torch.zeros((n, d, d), dtype=torch.float32, device=table.device)
+         if init_a is None else init_a)
+    rhs = torch.zeros((n, d), dtype=torch.float32, device=table.device)
+    for emb, mask, wt in _wide_chunks(table, extra_vec, bucket):
+        wt = mask if wt is None else wt
+        if row_coef is not None:
+            wt = wt * row_coef[:, None]
+        a += row_gramians(emb, col_weight=wt)
+        rhs += row_sums(emb, col_weight=wt)
+    return a, rhs
+
+
+def wide_obs(table: torch.Tensor, bucket: Bucket,
+             probe_rows: torch.Tensor) -> torch.Tensor:
+    """Streamed per-row ``sum_h (v.u - 1)^2`` for the loss pass."""
+    acc = torch.zeros((bucket.n_rows,), dtype=torch.float32,
+                      device=table.device)
+    for emb, mask, _ in _wide_chunks(table, None, bucket):
+        p = rowwise_dot(emb, probe_rows)
+        acc += (torch.square(p - 1.0) * mask).sum(dim=1)
+    return acc
 
 
 def _window(bucket: Bucket, num_rows: int) -> slice:

@@ -99,3 +99,40 @@ def test_cli_fails_without_cuda_instead_of_using_the_cpu(capsys):
     # --device defaults to cuda
     err = _refused(["--model_name", "safer2", "--epoch", "1"], capsys)
     assert "CUDA is not available" in err
+
+
+def test_cli_runs_the_woodbury_path_at_dim_128(tmp_path):
+    # dim >= 128 trains and evaluates through the Woodbury and rotated
+    # solves (a small synthetic set, in-process, on the CPU)
+    import numpy as np
+
+    from safer2_recommender_tpu_torch import cli
+    from safer2_recommender_tpu_torch.data.synth import write_csv
+    from safer2_recommender_tpu_torch.ops import woodbury
+
+    rng = np.random.default_rng(0)
+    pairs = np.unique(np.concatenate([
+        np.stack([rng.integers(0, 300, 9000), rng.integers(0, 30, 9000)], 1),
+        np.stack([rng.integers(0, 300, 1500), rng.integers(30, 80, 1500)], 1),
+    ]), axis=0).astype(np.int32)
+    held = pairs[:, 0] < 40
+    even = pairs[:, 1] % 2 == 0
+    paths = {}
+    for name, sel in (("train", ~held), ("test_tr", held & even),
+                      ("test_te", held & ~even)):
+        paths[name] = str(tmp_path / f"{name}.csv")
+        write_csv(paths[name], pairs[sel, 0], pairs[sel, 1])
+    woodbury.reset_solve_paths()
+    res = cli.run(["--model_name", "safer2", "--train_data", paths["train"],
+                   "--test_train_data", paths["test_tr"],
+                   "--test_test_data", paths["test_te"], "--dim", "128",
+                   "--uobs_weight", "0.004", "--l2_reg", "0.004",
+                   "--alpha", "0.3", "--bandwidth", "0.15", "--epoch", "2",
+                   "--device", "cpu"])
+    assert woodbury.SOLVE_PATHS["woodbury"] > 0
+    assert woodbury.SOLVE_PATHS["rotated"] > 0
+    s = res.model.state
+    assert torch.isfinite(s.user_emb).all() and torch.isfinite(s.item_emb).all()
+    assert len(res.epoch_ms) == 2
+    assert all(0.0 < w < 1.0 for w in res.mean_weights)
+    assert np.isfinite(res.metrics.mean_ndcg()).all()

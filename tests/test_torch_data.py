@@ -127,3 +127,22 @@ def test_native_reader_builds_from_the_jax_source():
 def test_bucket_edges_reject_a_flat_ladder():
     with pytest.raises(ValueError):
         tds._bucket_edges(64, 8, 1)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_powerlaw_dataset_matches_jax(seed, tmp_path):
+    # the port's numpy copy of data/synth.py gives the same tuples for a
+    # seed, so the two packages run the same synthetic workload
+    from safer2_recommender_tpu.data import synth as jsynth
+    from safer2_recommender_tpu_torch.data import synth as tsynth
+
+    got = tsynth.powerlaw_dataset(500, 300, seed=seed)
+    want = jsynth.powerlaw_dataset(500, 300, seed=seed)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    tsynth.write_csv(str(tmp_path / "t.csv"), *got)
+    jsynth.write_csv(str(tmp_path / "j.csv"), *want)
+    assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+    ds = tds.Dataset.from_csv(str(tmp_path / "t.csv"))
+    np.testing.assert_array_equal(ds.user_ids, got[0])

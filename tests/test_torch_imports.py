@@ -18,7 +18,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "safer2_recommender_tpu"
              or m.startswith("safer2_recommender_tpu."))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
 
 
@@ -26,9 +26,12 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 15        # every module was reached
+    count, bad, names = res.stdout.strip().split(" ", 2)
+    assert int(count) >= 20        # every module was reached
     assert bad == "[]", bad
+    for mod in ("ops.woodbury", "ops.bdot", "data.synth", "probes.bdot",
+                "probes.epoch_profile"):
+        assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
 
 
 def test_chip_smoke_imports_no_jax():

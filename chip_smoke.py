@@ -8,11 +8,15 @@ Phases, each printing lines to stdout tagged with its name:
   1. device: requires CUDA, turns TF32 off, prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles both kernels from csrc/ (sm_90a), one nvcc each,
-     started together;
+     started together, and prints what nvcc -Xptxas -v says of the
+     inverse-Cholesky kernel (registers, shared memory, spills);
   3. kernel: compares the inverse-Cholesky kernel with its plain torch
-     version on the card at r = 8/16/32/64, N = 4096 (random SPD systems
-     plus an all-zero system with a unit ridge and a rank-deficient
-     one) and times both with CUDA events;
+     version on the card at r = 8/16/32/64 (probes/chol_inverse.py), at
+     N = 4096 and the ragged N (0, 1, one block's systems +/- 1, 4097),
+     each batch with an all-zero system under a unit ridge (the identity
+     within 1e-6) and a rank-deficient one, and exact zeros above the
+     diagonal; then times it at N = 4096 in turns beside its bound, the
+     plain version and the library pair cholesky_ex + solve_triangular;
   4. bdot: compares the batched-dot kernel with its plain torch version
      (chained torch.bmm) at h = 32/64/128, N = 4096, 8 dots, within 1e-4
      of max|plain| (the f32 summation order differs); the probe of
@@ -37,8 +41,10 @@ Phases, each printing lines to stdout tagged with its name:
      memory;
  11. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
      own path, beside plain torch.bmm and the dim-512 solver's products;
-     then the inverse-Cholesky kernel against its plain version at the
-     largest shape the dim-512 path gave it, compared and timed.
+     then the launches of the inverse-Cholesky kernel on the dim512 and
+     synth50k paths by r and N against one wave of the card, and the
+     kernel against its plain version at the largest and the most
+     frequent shape of each path, compared and timed as in phase 3.
 Every path's kernel launch counts are set to 0 just before it and read
 just after. Then a JSON line describing the kernels (launch counts on
 their paths, errors, times) and, last, {"ok": true, "device": {...}}.
@@ -55,12 +61,14 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ML1M = os.path.join(ROOT, "tests", "ml-1m")
 REL_TOL = 1e-4          # kernel vs plain, well-conditioned systems
 REL_TOL_RANK_DEF = 1e-3  # the rank-deficient system (ridge 1e-2)
+EYE_TOL = 1e-6          # the all-zero system with a unit ridge vs identity
 SOLVE_RTOL, SOLVE_ATOL = 2e-3, 2e-4   # the JAX package's spd_solve bounds
 BDOT_REL_TOL = 1e-4     # bdot kernel vs chained torch.bmm, of max|plain|
 NDCG20_MIN = 0.2
@@ -80,84 +88,79 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def spd_batch(gen, n: int, r: int, device):
-    """Well-conditioned SPD systems X X^T / (2r) + 0.1 I and ridges."""
-    import torch
-
-    x = torch.randn((n, r, 2 * r), generator=gen, device=device)
-    a = x @ x.transpose(1, 2) / (2 * r) + 0.1 * torch.eye(r, device=device)
-    ridge = torch.rand((n, r), generator=gen, device=device) * 0.49 + 0.01
-    return a, ridge
-
-
-def phase_kernel(block_chol, device):
-    import torch
-
-    from safer2_recommender_tpu_torch.probes import cuda_ms
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    n = 4096
-    by_r = {}
-    for r in block_chol.KERNEL_SIZES:
-        a, ridge = spd_batch(gen, n, r, device)
-        a[0] = 0.0                      # all-zero system, unit ridge
-        ridge[0] = 1.0
-        y = torch.randn((r, r // 2), generator=gen, device=device)
-        a[1] = y @ y.T / r              # rank r/2, small ridge
-        ridge[1] = 1e-2
-        a, ridge = a.contiguous(), ridge.contiguous()
-        got = block_chol.chol_inverse_small(a, ridge)
-        want = block_chol.chol_inverse_small_ref(a, ridge)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"r={r}: nonfinite output")
-        diff = (got - want).abs().amax(dim=(1, 2))
-        scale = want.abs().amax(dim=(1, 2))
-        rel = diff / scale
-        eye_err = float((got[0] - torch.eye(r, device=device)).abs().max())
-        check(eye_err <= 1e-6, f"r={r}: zero system with unit ridge is "
-              f"{eye_err} off the identity")
-        rel_ok = float(rel[2:].max())
-        rel_rd = float(rel[1])
-        check(rel_ok <= REL_TOL, f"r={r}: rel err {rel_ok} > {REL_TOL}")
-        check(rel_rd <= REL_TOL_RANK_DEF,
-              f"r={r}: rank-deficient rel err {rel_rd} > {REL_TOL_RANK_DEF}")
-        ms = cuda_ms(lambda: block_chol.chol_inverse_small(a, ridge))
-        plain_ms = cuda_ms(lambda: block_chol.chol_inverse_small_ref(a, ridge))
-        by_r[r] = dict(max_abs_err=float(diff.max()), max_rel_err=rel_ok,
-                       rank_def_rel_err=rel_rd, ms=ms, plain_ms=plain_ms)
-        say("kernel", f"r={r} N={n}: max abs err {float(diff.max()):.3e}, "
-            f"max rel err {rel_ok:.3e} (tol {REL_TOL:g}), rank-deficient "
-            f"rel err {rel_rd:.3e} (tol {REL_TOL_RANK_DEF:g}); kernel "
-            f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+def phase_kernel(chol_probe, device):
+    """The inverse-Cholesky kernel against its plain version at every r
+    (``probes/chol_inverse.py::run``): N = 4096 and the ragged N, each
+    batch with an all-zero system under a unit ridge (must give the
+    identity within 1e-6) and a rank-deficient one; exact zeros above
+    the diagonal. The probe then times it at N = 4096 in turns beside
+    its bound, the plain version and the library pair."""
+    by_r = chol_probe.run(device)
+    for r, e in by_r.items():
+        check(e["finite"], f"r={r}: nonfinite output")
+        check(e["upper_zero"], f"r={r}: nonzero entry above the diagonal")
+        check(e["eye_err"] <= EYE_TOL, f"r={r}: zero system with unit ridge "
+              f"is {e['eye_err']} off the identity")
+        check(e["max_rel_err"] <= REL_TOL,
+              f"r={r}: rel err {e['max_rel_err']} > {REL_TOL}")
+        check(e["rank_def_rel_err"] <= REL_TOL_RANK_DEF,
+              f"r={r}: rank-deficient rel err {e['rank_def_rel_err']} > "
+              f"{REL_TOL_RANK_DEF}")
+        say("kernel", f"r={r}, N in {e['n_checked']}: max abs err "
+            f"{e['max_abs_err']:.3e}, max rel err {e['max_rel_err']:.3e} "
+            f"(tol {REL_TOL:g}), rank-deficient rel err "
+            f"{e['rank_def_rel_err']:.3e} (tol {REL_TOL_RANK_DEF:g}), "
+            f"identity err {e['eye_err']:.1e} (tol {EYE_TOL:g}), zero above "
+            f"the diagonal")
     return by_r
 
 
-def time_at(block_chol, device, shape):
-    """The kernel against its plain version at one [N, r, r] shape
-    (relative error of each system within REL_TOL), then both timed in
-    turns plain, kernel, kernel, plain; the better of each pair."""
+def time_at(chol_probe, device, shape):
+    """The kernel against its plain version at one [N, r, r] shape of
+    the main path (relative error of each system within REL_TOL, exact
+    zeros above the diagonal), then timed in turns beside its bound, the
+    plain version and the library pair."""
     import torch
 
-    from safer2_recommender_tpu_torch.probes import cuda_ms
+    from safer2_recommender_tpu_torch.ops import block_chol
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
-    a, ridge = spd_batch(gen, shape[0], shape[1], device)
-    k = lambda: block_chol.chol_inverse_small(a, ridge)
-    p = lambda: block_chol.chol_inverse_small_ref(a, ridge)
-    got, want = k(), p()
+    a, ridge = chol_probe.spd_batch(gen, shape[0], shape[1], device)
+    got = block_chol.chol_inverse_small(a, ridge)
+    want = block_chol.chol_inverse_small_ref(a, ridge)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), f"{list(shape)}: nonfinite output")
-    diff = (got - want).abs().amax(dim=(1, 2))
-    rel = float((diff / want.abs().amax(dim=(1, 2))).max())
-    check(rel <= REL_TOL, f"{list(shape)}: rel err {rel} > {REL_TOL}")
-    p1, k1, k2, p2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
-    return {"max_abs_err": float(diff.max()), "max_rel_err": rel,
-            "ms": min(k1, k2), "plain_ms": min(p1, p2)}
+    e = chol_probe.errors(got, want, hard=False)
+    check(e["finite"], f"{list(shape)}: nonfinite output")
+    check(e["upper_zero"], f"{list(shape)}: nonzero above the diagonal")
+    check(e["max_rel_err"] <= REL_TOL,
+          f"{list(shape)}: rel err {e['max_rel_err']} > {REL_TOL}")
+    row = chol_probe.measure(a, ridge)
+    row.update(max_abs_err=e["max_abs_err"], max_rel_err=e["max_rel_err"])
+    return row
 
 
-def phase_solve(block_chol, device):
+def launch_histogram(shapes, wave):
+    """{r: {"launches", "below_one_wave", "n_bins": {"[lo, hi)": count}}}
+    of recorded [N, r, r] shapes; wave[r] is the systems the card holds
+    at once at that r."""
+    hist = {}
+    for n, r, _ in shapes:
+        h = hist.setdefault(r, {"launches": 0, "below_one_wave": 0,
+                                "one_wave": wave[r], "n_bins": {}})
+        h["launches"] += 1
+        h["below_one_wave"] += n < wave[r]
+        lo = 1 << max(n, 1).bit_length() - 1
+        key = f"[{lo}, {2 * lo})"
+        h["n_bins"][key] = h["n_bins"].get(key, 0) + 1
+    return {r: hist[r] for r in sorted(hist)}
+
+
+def most_frequent(shapes):
+    return Counter(shapes).most_common(1)[0][0]
+
+
+def phase_solve(block_chol, chol_probe, device):
     import torch
 
     gen = torch.Generator(device=device)
@@ -165,7 +168,7 @@ def phase_solve(block_chol, device):
     worst = {}
     for d in (8, 32, 64, 128, 512):
         n = 128 if d == 512 else 1024
-        a, ridge = spd_batch(gen, n, d, device)
+        a, ridge = chol_probe.spd_batch(gen, n, d, device)
         ridge = ridge[:, 0].contiguous()          # a [N] ridge
         b = torch.randn((n, d), generator=gen, device=device)
         a[3] = 0.0                                # padded row: zero system
@@ -360,15 +363,16 @@ def phase_synth(block_chol, woodbury, device, epochs=3):
     torch.cuda.reset_peak_memory_stats()
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
-    model.initialize(dd)
     epoch_ms, weights = [], []
-    for _ in range(epochs):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        model.train_epoch(dd)
-        torch.cuda.synchronize()
-        epoch_ms.append((time.perf_counter() - t1) * 1000)
-        weights.append(model.get_mean_weight())
+    with recorded_chol_shapes(block_chol) as shapes:
+        model.initialize(dd)
+        for _ in range(epochs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.train_epoch(dd)
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t1) * 1000)
+            weights.append(model.get_mean_weight())
     launches = dict(block_chol.LAUNCHES)
     paths = dict(woodbury.SOLVE_PATHS)
     peak = torch.cuda.max_memory_allocated()
@@ -376,6 +380,8 @@ def phase_synth(block_chol, woodbury, device, epochs=3):
     check(paths["wide"] > 0, f"synth50k: no wide rows: {paths}")
     check(paths["woodbury"] > 0, f"synth50k: no Woodbury rows: {paths}")
     check(sum(launches.values()) > 0, "synth50k: no kernel launch")
+    check(len(shapes) == sum(launches.values()),
+          "synth50k: launches do not match calls")
     say("synth50k", f"{ds.num_users} users x {ds.num_items} items, "
         f"{ds.nnz} tuples, dim {cfg.dim}, {epochs} epochs: first epoch "
         f"{epoch_ms[0]} ms, then {epoch_ms[1:]} ms (synchronized host "
@@ -383,7 +389,7 @@ def phase_synth(block_chol, woodbury, device, epochs=3):
         f"{weights}; solve paths (padded rows; refreshes) {paths}; kernel "
         f"launches by r {launches}; peak device memory {peak} B")
     return dict(epoch_ms=epoch_ms, paths=paths, launches=launches,
-                peak_bytes=peak)
+                peak_bytes=peak, shapes=shapes)
 
 
 def main() -> int:
@@ -402,6 +408,7 @@ def main() -> int:
     from safer2_recommender_tpu_torch import cli
     from safer2_recommender_tpu_torch.ops import bdot, block_chol, woodbury
     from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
+    from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -420,16 +427,19 @@ def main() -> int:
         f"{torch.get_float32_matmul_precision()}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         builds = [ex.submit(block_chol.build_kernel), ex.submit(bdot.build_kernel)]
+        ptxas = ex.submit(chol_probe.ptxas_report)
         for f in builds:
             f.result()
+        ptxas = ptxas.result()
     say("build", f"chol_inverse.cu and bdot.cu built (in parallel) and "
         f"loaded in {time.perf_counter() - t0:.1f} s")
+    say("build", "nvcc -Xptxas -v of chol_inverse.cu: " + " | ".join(ptxas))
 
-    by_r = phase_kernel(block_chol, device)
+    by_r = phase_kernel(chol_probe, device)
     by_h = phase_bdot(bdot, device)
-    phase_solve(block_chol, device)
+    phase_solve(block_chol, chol_probe, device)
 
     block_chol.reset_launches()
     with recorded_chol_shapes(block_chol) as shapes:
@@ -479,12 +489,27 @@ def main() -> int:
     probe_launches = bdot.LAUNCHES
     check(probe_launches > 0, "probe: the bdot kernel was never launched")
 
-    main_shape = max(shapes512, key=lambda s: s[0] * s[1] * s[2])
-    main_t = time_at(block_chol, device, main_shape)
-    say("kernel", f"largest dim-512 main-path shape {list(main_shape)}: "
-        f"max abs err {main_t['max_abs_err']:.3e}, max rel err "
-        f"{main_t['max_rel_err']:.3e} (tol {REL_TOL:g}); kernel "
-        f"{main_t['ms']:.4f} ms, plain torch {main_t['plain_ms']:.4f} ms")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave = {r: sms * block_chol.resident_systems(r)
+            for r in block_chol.KERNEL_SIZES}
+    shapes50k = synth.pop("shapes")
+    hist = {"ml1m_dim512": launch_histogram(shapes512, wave),
+            "synth50k_dim512": launch_histogram(shapes50k, wave)}
+    say("kernel", f"one wave (SMs x systems resident on one) by r: {wave}; "
+        f"launches by r and N, ML-1M dim 512 (10 epochs + eval + serve "
+        f"batch excluded) and synth50k (3 epochs): {json.dumps(hist)}")
+    size = lambda sh: sh[0] * sh[1] * sh[2]
+    main_shapes = {
+        "largest_ml1m_dim512": max(shapes512, key=size),
+        "most_frequent_ml1m_dim512": most_frequent(shapes512),
+        "largest_synth50k": max(shapes50k, key=size),
+        "most_frequent_synth50k": most_frequent(shapes50k)}
+    main_t = {}
+    for key, shape in main_shapes.items():
+        main_t[key] = time_at(chol_probe, device, shape)
+        say("kernel", f"{key} {chol_probe.describe(main_t[key])}; max rel "
+            f"err {main_t[key]['max_rel_err']:.3e} (tol {REL_TOL:g})")
+    head = main_t["largest_ml1m_dim512"]
     probe_h = {row["h"]: row for row in probe["bdot"]}
     print(json.dumps({"kernels": [{
         "name": "chol_inverse",
@@ -496,10 +521,19 @@ def main() -> int:
                      "(_lane_matmul/_lane_matmul_kernel)"),
         "launches": sum(d512["launches"].values()),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
-                           + [main_t["max_abs_err"]]),
-        "ms": main_t["ms"],
-        "plain_ms": main_t["plain_ms"],
-        "shape": list(main_shape),
+                           + [v["max_abs_err"] for v in main_t.values()]),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "device_ms": head["device_ms"],
+        "cholesky_ex_ms": head["cholesky_ex_ms"],
+        "shape": head["shape"],
+        "main_path_shapes": main_t,
+        "launch_histogram": hist,
+        "one_wave": wave,
+        "ptxas": ptxas,
         "launches_by_path": {
             "ml1m_dim32": dim32_launches, "serve_dim32": serve_launches,
             "ml1m_dim64": dim64_launches,
@@ -521,10 +555,11 @@ def main() -> int:
         "max_abs_err": max(v["max_abs_err"] for v in by_h.values()),
         "ms": probe_h[128]["ms"],
         "plain_ms": probe_h[128]["plain_ms"],
+        "bound_ms": probe_h[128]["bound_ms"],
+        "bound_by": probe_h[128]["bound_by"],
+        "library_ms": probe_h[128]["library_ms"],
         "shape": [4096, 128, 128],
-        "by_h": {str(h): dict(v, ms=probe_h[h]["ms"],
-                              plain_ms=probe_h[h]["plain_ms"])
-                 for h, v in by_h.items()},
+        "by_h": {str(h): dict(v, **probe_h[h]) for h, v in by_h.items()},
         "probe": probe,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

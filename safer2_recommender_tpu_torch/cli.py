@@ -28,6 +28,9 @@ from safer2_recommender_tpu_torch.evaluation.metrics import (
     DEFAULT_K_LIST,
     EvaluationResult,
 )
+from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
+                                                       DeviceUnavailable,
+                                                       resolve_device)
 from safer2_recommender_tpu_torch.utils.logging import Timer, setup
 
 MODEL_CHOICES = ("ials", "ialspp", "safer2", "safer2pp", "cvar_mf",
@@ -105,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="normal-equation assembly dtype; the port computes "
                         "in f32 ('bf16' is not ported yet)")
     # addition of the port
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to run on (default cuda; fails when "
                         "CUDA is absent rather than fall back to the CPU)")
     return p
@@ -126,8 +129,6 @@ class RunResult:
 
 def run(argv: Optional[List[str]] = None) -> RunResult:
     """Parse ``argv``, train, evaluate; the body of ``main``."""
-    import torch
-
     parser = build_parser()
     args = parser.parse_args(argv)
     for flag, (is_set, item) in _NOT_PORTED.items():
@@ -137,10 +138,10 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
     if args.model_name != "safer2":
         parser.error(f"--model_name {args.model_name} is not ported to "
                      "PyTorch yet; ported: safer2 (ROADMAP Queue 1)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error(f"--device {args.device}: CUDA is not available "
-                     "(pass --device cpu to run on the CPU)")
+    try:
+        device = resolve_device(args.device)
+    except DeviceUnavailable as e:
+        parser.error(f"--device {args.device}: {e}")
     log = setup()
 
     from safer2_recommender_tpu_torch.data.dataset import (

@@ -27,6 +27,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
+                                                       resolve_device)
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
@@ -352,7 +354,7 @@ class DeviceData:
     def build(
         cls,
         ds: Dataset,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         num_users: Optional[int] = None,
         num_items: Optional[int] = None,
         min_bucket: int = 8,
@@ -361,6 +363,7 @@ class DeviceData:
         dim: int = 0,
         memory_budget_bytes: int = 2 << 30,
     ) -> "DeviceData":
+        device = resolve_device(device)
         num_users = num_users or ds.num_users
         num_items = num_items or ds.num_items
         max_rows, max_tuples = _bucket_budgets(dim, memory_budget_bytes)
@@ -433,7 +436,7 @@ class FoldInData:
         tr: Dataset,
         te: Dataset,
         num_items: int,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         min_bucket: int = 8,
         row_multiple: int = 8,
         chunk: int = 1024,
@@ -441,6 +444,7 @@ class FoldInData:
         dim: int = 0,
         memory_budget_bytes: int = 2 << 30,
     ) -> "FoldInData":
+        device = resolve_device(device)
         max_rows, max_tuples = _bucket_budgets(dim, memory_budget_bytes)
         uniq = np.unique(tr.user_ids)
         n_eval = uniq.size

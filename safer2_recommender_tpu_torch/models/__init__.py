@@ -3,6 +3,7 @@
 
 from safer2_recommender_tpu_torch.models.base import MFState, Recommender
 from safer2_recommender_tpu_torch.models.safer2 import SAFER2
+from safer2_recommender_tpu_torch.utils.device import DEFAULT_DEVICE
 
 MODEL_REGISTRY = {
     "safer2": SAFER2,
@@ -10,7 +11,9 @@ MODEL_REGISTRY = {
 
 
 def get_model(name: str, cfg, num_users: int, num_items: int,
-              device="cpu"):
+              device=DEFAULT_DEVICE):
+    """A model of ``name`` on ``device`` (the card unless the caller
+    passes ``device="cpu"``; without CUDA the default raises)."""
     try:
         cls = MODEL_REGISTRY[name.lower()]
     except KeyError:

@@ -29,6 +29,8 @@ from safer2_recommender_tpu_torch.evaluation.metrics import (
 )
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.ops import woodbury
+from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
+                                                       resolve_device)
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
@@ -82,13 +84,13 @@ class Recommender:
     name = "base"
 
     def __init__(self, cfg: Config, num_users: int, num_items: int,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if cfg.compute_dtype not in ("auto", "f32"):
             raise NotImplementedError(BF16_NOT_PORTED)
         self.cfg = cfg
         self.num_users = num_users
         self.num_items = num_items
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.print_train_stats = False
         self.print_residual_stats = False
         self.print_var_stats = False

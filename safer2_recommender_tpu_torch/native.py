@@ -2,9 +2,9 @@
 
 The libraries built here all come from sources in the repository:
 
-* the CSV reader, from the JAX package's ``native/csv_reader.cc``, read
-  by path so one C++ source serves both packages (importing
-  ``safer2_recommender_tpu`` would import jax);
+* the CSV reader, from the port's own ``csrc/csv_reader.cc`` (a copy of
+  the JAX package's ``native/csv_reader.cc``: the port builds, opens and
+  reads nothing under the JAX package);
 * the CUDA kernels under ``csrc/``, each compiled with ``nvcc`` for
   ``sm_90a`` into a shared library of its own with a plain C interface
   (``chol_inverse.cu``, ``bdot.cu``).
@@ -30,11 +30,10 @@ from typing import List, Sequence
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_DIR = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(_REPO_DIR, ".build", "torch_kernels")
-CSV_READER_SRC = os.path.join(_REPO_DIR, "safer2_recommender_tpu", "native",
-                              "csv_reader.cc")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+CSV_READER_SRC = os.path.join(CSRC_DIR, "csv_reader.cc")
 CSV_READER_FLAGS = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
                     "-lpthread"]
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 
 
 class BuildError(RuntimeError):

@@ -4,7 +4,8 @@ The counterpart of ``safer2_recommender_tpu/ops/block_chol.py``. Every
 normal-equation solve of an ALS sweep is a batch of small SPD systems.
 For d <= 64 the whole system goes through one CUDA kernel
 (``csrc/chol_inverse.cu``) that computes ``inv(chol(a + diag(ridge)))``
-with one thread block per system; the solve is then two batched
+with one thread per row, the system in registers (a group of warp lanes
+for d <= 32, a block of two warps at 64); the solve is then two batched
 mat-vecs. For d > 64 the blocked factorization of the JAX package
 (``_factor_rec`` / ``_trsm_right`` / ``_fwd_sub`` / ``_bwd_sub``) runs as
 batched torch products around the kernel on the <= 64 diagonal blocks.
@@ -56,8 +57,22 @@ def build_kernel():
         lib.frt_chol_inverse_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.frt_chol_inverse_resident.restype = ctypes.c_int
+        lib.frt_chol_inverse_resident.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib
+
+
+def resident_systems(r: int) -> int:
+    """Systems of size r one SM holds at once under the compiled
+    kernel's occupancy; times the SM count, that is one wave."""
+    out = ctypes.c_int(0)
+    err = build_kernel().frt_chol_inverse_resident(r, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"chol_inverse occupancy query failed at r={r}: "
+                           f"cudaError {err}")
+    return out.value
 
 
 def chol_inverse_small_ref(a: torch.Tensor,
@@ -123,6 +138,8 @@ def chol_inverse_small(a: torch.Tensor, ridge: torch.Tensor) -> torch.Tensor:
     n = a.shape[0]
     if n == 0:
         return out
+    if a.data_ptr() % 16:
+        a = a.clone()       # the kernel reads rows as float4
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.frt_chol_inverse_f32(a.data_ptr(), ridge.data_ptr(),

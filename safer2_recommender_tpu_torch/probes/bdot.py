@@ -9,7 +9,12 @@ Prints one line per matrix size h in {32, 64, 128}: the chained product
 ``acc = (acc @ x) * 1e-2`` over 8 products at [4096, h, h] through
 the kernel, through plain ``torch.bmm`` in full f32, and through plain
 ``torch.bmm`` with TF32 on (the nearest analog of the TPU probe's
-DEFAULT precision), each in ms and TFLOP/s. Then one line per distinct
+DEFAULT precision), each in ms and TFLOP/s; one library call for the
+same function (``torch.linalg.matrix_power`` f32, scaled); and the bound
+(the larger of x read and out written at 3.35 TB/s and, at 67 TFLOP/s
+f32, the FLOPs of the fewest products that compute the function,
+``products_needed``: the kernel runs the chain of 8, the bound counts
+4). TFLOP/s are of the chain's 8 products. Then one line per distinct
 batched product that ``block_chol.spd_solve`` issues for
 [512, 512, 512] systems (the dim-512 blocked factorization and
 substitutions), recorded from a run of it, with plain ``torch.matmul``
@@ -28,7 +33,7 @@ from torch.overrides import TorchFunctionMode
 
 from safer2_recommender_tpu_torch.ops import bdot as bdot_op
 from safer2_recommender_tpu_torch.ops import block_chol
-from safer2_recommender_tpu_torch.probes import cuda_ms
+from safer2_recommender_tpu_torch.probes import bound, cuda_ms
 
 SIZES = bdot_op.SIZES
 SCALE = 1e-2
@@ -68,6 +73,15 @@ def solver_product_shapes(n_sys: int, d: int, device) -> Counter:
     return rec.shapes
 
 
+def products_needed(n_dots: int) -> int:
+    """Matrix products that x^(n_dots + 1), the function of the chain,
+    needs by repeated squaring: one per bit of m = n_dots + 1 below the
+    top one, and one more per further set bit (4 at 8 dots: x^2, x^4,
+    x^8, x^9). No shorter chain exists for m < 15."""
+    m = n_dots + 1
+    return m.bit_length() - 1 + bin(m).count("1") - 1
+
+
 def _tflops(flop: float, ms: float) -> float:
     return flop / (ms * 1e-3) / 1e12
 
@@ -84,9 +98,14 @@ def run(device="cuda") -> Dict[str, List[dict]]:
     rows = []
     for h in SIZES:
         x = torch.randn((N, h, h), generator=gen, device=device) * 0.1
-        flop = 2.0 * N * h ** 3 * N_DOTS
+        flop = 2.0 * N * h ** 3 * N_DOTS        # the chain's products
+        least_flop = 2.0 * N * h ** 3 * products_needed(N_DOTS)
         ms = cuda_ms(lambda: bdot_op.bdot(x, N_DOTS, SCALE))
         plain_ms = cuda_ms(lambda: bdot_op.bdot_ref(x, N_DOTS, SCALE))
+        # one library call for the same function: x^(n_dots + 1) by
+        # repeated squaring, scaled once
+        lib_ms = cuda_ms(lambda: torch.linalg.matrix_power(
+            x, N_DOTS + 1) * SCALE ** N_DOTS)
         tf32_was = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
@@ -94,16 +113,21 @@ def run(device="cuda") -> Dict[str, List[dict]]:
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32_was
         row = dict(h=h, n=N, n_dots=N_DOTS, ms=ms, plain_ms=plain_ms,
-                   plain_tf32_ms=tf32_ms, tflops=_tflops(flop, ms),
+                   plain_tf32_ms=tf32_ms, library_ms=lib_ms,
+                   tflops=_tflops(flop, ms),
                    plain_tflops=_tflops(flop, plain_ms),
-                   plain_tf32_tflops=_tflops(flop, tf32_ms))
+                   plain_tf32_tflops=_tflops(flop, tf32_ms),
+                   **bound(2 * 4 * N * h * h, least_flop))
         rows.append(row)
         print(f"[probe bdot] h={h:3d} N={N} dots={N_DOTS}: kernel "
               f"{ms:.4f} ms ({row['tflops']:.2f} TFLOP/s); torch.bmm f32 "
               f"{plain_ms:.4f} ms ({row['plain_tflops']:.2f} TFLOP/s); "
               f"torch.bmm TF32 (nearest analog of the TPU's DEFAULT "
               f"precision) {tf32_ms:.4f} ms "
-              f"({row['plain_tf32_tflops']:.2f} TFLOP/s)", flush=True)
+              f"({row['plain_tf32_tflops']:.2f} TFLOP/s); "
+              f"torch.linalg.matrix_power f32 {lib_ms:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({100 * row['bound_ms'] / ms:.1f}% of it)", flush=True)
 
     solver = []
     for (sa, sb), count in sorted(

@@ -128,7 +128,8 @@ def busy_ms(intervals: Sequence[Tuple[float, float]]) -> float:
 
 def profile_epochs(model, dd: DeviceData):
     """Profile two epochs: (wall ms, device busy ms, the twelve device
-    operations that took the most time, as (ms, count, name))."""
+    operations that took the most time, and every launch of the port's
+    inverse-Cholesky kernel, each as (ms, count, name))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,8 +150,9 @@ def profile_epochs(model, dd: DeviceData):
         acc[0] += (e.time_range.end - e.time_range.start) / 1e3
         acc[1] += 1
     ranked = sorted(((t, n, name) for name, (t, n) in by_name.items()),
-                    reverse=True)[:12]
-    return wall, busy_ms(spans), ranked
+                    reverse=True)
+    chol = [row for row in ranked if "chol_inverse" in row[2]]
+    return wall, busy_ms(spans), ranked[:12], chol
 
 
 def run() -> Dict[str, dict]:
@@ -169,16 +171,21 @@ def run() -> Dict[str, dict]:
         print(f"[profile {name}] phase ms, median of 3 from one state: "
               + ", ".join(f"{k} {v:.3f}" for k, v in med.items()),
               flush=True)
-        wall, busy, ranked = profile_epochs(model, dd)
+        wall, busy, ranked, chol = profile_epochs(model, dd)
         print(f"[profile {name}] 2 profiled epochs: wall {wall:.1f} ms, "
               f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
               f"idle {100 * (1 - busy / wall):.1f}%", flush=True)
         for ms, count, op in ranked:
             print(f"[profile {name}]   {ms:9.3f} ms x {count:5d}  "
                   f"{op[:110]}", flush=True)
+        for ms, count, op in chol:
+            print(f"[profile {name}] inverse-Cholesky kernel {ms:.3f} ms x "
+                  f"{count} launches  {op[:110]}", flush=True)
         out[name] = dict(phase_ms=med, wall_ms=wall, busy_ms=busy,
                          top=[dict(ms=ms, count=c, name=op)
-                              for ms, c, op in ranked])
+                              for ms, c, op in ranked],
+                         chol_inverse=[dict(ms=ms, count=c, name=op)
+                                       for ms, c, op in chol])
         del model, dd
         torch.cuda.empty_cache()
     return out

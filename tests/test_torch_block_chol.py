@@ -2,9 +2,9 @@
 
 On the CPU ``chol_inverse_small`` runs its plain torch version; the JAX
 side runs its Pallas kernels in interpret mode, as tests/test_ops.py
-does. The CUDA kernel itself is compared with the plain version in
-``test_kernel_matches_plain_on_cuda`` (marked ``cuda``; it skips where
-no GPU is present)."""
+does. The CUDA kernel itself is compared with the plain version in the
+tests marked ``cuda`` (they skip where no GPU is present): at every r,
+at the ragged N, on the hard systems and on an unaligned input."""
 
 import numpy as np
 import pytest
@@ -131,6 +131,21 @@ def test_spd_solve_ridge_forms_match_explicit(kind, d):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("r", [8, 64])
+def test_plain_chol_inverse_reads_the_lower_triangle_only(r):
+    # the kernel reads only the lower triangle of a (its systems come
+    # from products that need not be bit-symmetric); the plain version
+    # it is held against must do the same
+    rng = np.random.default_rng(30 + r)
+    a, ridge = _well_conditioned(rng, 6, r)
+    noisy = a + np.triu(rng.normal(size=(6, r, r)), 1).astype(np.float32)
+    got = tbc.chol_inverse_small_ref(torch.from_numpy(noisy),
+                                     torch.from_numpy(ridge))
+    want = tbc.chol_inverse_small_ref(torch.from_numpy(a),
+                                      torch.from_numpy(ridge))
+    assert torch.equal(got, want)
+
+
 def test_cpu_wrapper_runs_the_plain_version_without_counting():
     rng = np.random.default_rng(4)
     a, ridge = _well_conditioned(rng, 5, 16)
@@ -175,6 +190,72 @@ def test_kernel_matches_plain_on_cuda(r):
     want = tbc.chol_inverse_small_ref(a, ridge)
     torch.cuda.synchronize()
     assert tbc.LAUNCHES[r] == before + 1
+    rel = ((got - want).abs().amax(dim=(1, 2))
+           / want.abs().amax(dim=(1, 2)))
+    assert float(rel.max()) <= 1e-4
+
+
+def _hard_systems(rng, n, r):
+    """Well-conditioned systems with system 0 all zero under a unit
+    ridge and system 1 of rank r/2 under ridge 1e-2."""
+    a, ridge = _well_conditioned(rng, n, r)
+    if n > 0:
+        a[0], ridge[0] = 0.0, 1.0
+    if n > 1:
+        y = rng.normal(size=(r, r // 2)).astype(np.float32)
+        a[1], ridge[1] = y @ y.T / r, 1e-2
+    return a, ridge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 16, 32, 64])
+def test_kernel_ragged_and_hard_cases_on_cuda(r):
+    # N = 0, 1, one block's systems +/- 1 (128 / r lane groups for
+    # r <= 32, one system per block at 64) and 4097: the ragged tail is
+    # masked; the zero system gives the identity, the rank-deficient one
+    # stays within 1e-3, and nothing above the diagonal is nonzero
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    rng = np.random.default_rng(100 + r)
+    per_block = 128 // r if r <= 32 else 1
+    upper = torch.triu(torch.ones(r, r, dtype=torch.bool), 1).cuda()
+    eye = torch.eye(r).cuda()
+    for n in sorted({0, 1, max(per_block - 1, 0), per_block + 1, 4097}):
+        a, ridge = _hard_systems(rng, n, r)
+        a, ridge = torch.from_numpy(a).cuda(), torch.from_numpy(ridge).cuda()
+        got = tbc.chol_inverse_small(a, ridge)
+        want = tbc.chol_inverse_small_ref(a, ridge)
+        torch.cuda.synchronize()
+        assert got.shape == (n, r, r)
+        if n == 0:
+            continue
+        assert bool(torch.isfinite(got).all()), n
+        assert bool((got[:, upper] == 0).all()), n
+        assert float((got[0] - eye).abs().max()) <= 1e-6, n
+        rel = ((got - want).abs().amax(dim=(1, 2))
+               / want.abs().amax(dim=(1, 2)))
+        if n > 1:
+            assert float(rel[1]) <= 1e-3, n
+        if n > 2:
+            assert float(rel[2:].max()) <= 1e-4, n
+
+
+@pytest.mark.cuda
+def test_kernel_takes_an_unaligned_input_on_cuda():
+    # the kernel reads rows as float4: an input that starts 4 bytes into
+    # its storage is copied to an aligned one first, not refused
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    rng = np.random.default_rng(7)
+    a, ridge = _well_conditioned(rng, 33, 16)
+    flat = torch.from_numpy(np.concatenate([[0.0], a.ravel()])
+                            .astype(np.float32)).cuda()
+    a_off = flat[1:].view(33, 16, 16)
+    assert a_off.data_ptr() % 16 != 0 and a_off.is_contiguous()
+    ridge = torch.from_numpy(ridge).cuda()
+    got = tbc.chol_inverse_small(a_off, ridge)
+    want = tbc.chol_inverse_small_ref(a_off, ridge)
+    torch.cuda.synchronize()
     rel = ((got - want).abs().amax(dim=(1, 2))
            / want.abs().amax(dim=(1, 2)))
     assert float(rel.max()) <= 1e-4

@@ -61,20 +61,21 @@ def _port(ds):
 ])
 def test_device_data_matches_jax_on_tiny(tiny, kw):
     ds, _ = tiny
-    _same_dd(tds.DeviceData.build(_port(ds), **kw),
+    _same_dd(tds.DeviceData.build(_port(ds), device="cpu", **kw),
              JDeviceData.build(ds, **kw))
 
 
 def test_device_data_matches_jax_on_ml1m(ml1m):
     train, jdd, _ = ml1m
-    _same_dd(tds.DeviceData.build(_port(train)), jdd)
+    _same_dd(tds.DeviceData.build(_port(train), device="cpu"), jdd)
 
 
 def test_fold_in_data_matches_jax_on_ml1m(ml1m):
     train, _, jfold = ml1m
     val_tr = tds.Dataset.from_csv(os.path.join(ML1M_DIR, "validation_tr.csv"))
     val_te = tds.Dataset.from_csv(os.path.join(ML1M_DIR, "validation_te.csv"))
-    fold = tds.FoldInData.build(val_tr, val_te, num_items=train.num_items)
+    fold = tds.FoldInData.build(val_tr, val_te, num_items=train.num_items,
+                                device="cpu")
     _same_buckets(fold.by_user, jfold.by_user)
     for name in ("excl", "gt", "gt_len", "hist_size"):
         _same(getattr(fold, name), getattr(jfold, name))
@@ -87,7 +88,8 @@ def test_fold_in_data_without_ground_truth_matches_jax(tiny):
     ds, _ = tiny
     empty = np.zeros(0, np.int32)
     fold = tds.FoldInData.build(_port(ds), tds.Dataset(empty, empty),
-                                num_items=ds.num_items, dim=8)
+                                num_items=ds.num_items, device="cpu",
+                                dim=8)
     jfold = JFoldInData.build(ds, JDataset(empty, empty),
                               num_items=ds.num_items, dim=8)
     _same_buckets(fold.by_user, jfold.by_user)
@@ -116,6 +118,9 @@ def test_from_csv_native_and_gz_match_jax(tmp_path):
 def test_native_reader_builds_from_the_jax_source():
     from safer2_recommender_tpu_torch import native
 
+    # the port's own copy of the JAX package's source (csrc/csv_reader.cc)
+    assert native.CSV_READER_SRC == os.path.join(native.CSRC_DIR,
+                                                 "csv_reader.cc")
     if native.load_csv_reader() is None:
         pytest.skip("no C++ toolchain to build the native reader")
     out = native.build_shared("frt_io", [native.CSV_READER_SRC],

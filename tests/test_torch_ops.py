@@ -40,7 +40,7 @@ def both():
     pairs = np.unique(np.stack([rng.integers(0, 75, 1500),
                                 rng.integers(0, 44, 1500)], 1), axis=0)
     u, i = pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
-    tdd = tds.DeviceData.build(tds.Dataset(u, i))
+    tdd = tds.DeviceData.build(tds.Dataset(u, i), device="cpu")
     jdd = JDeviceData.build(JDataset(u, i))
     assert any(not b.contiguous for b in jdd.by_user + jdd.by_item)
     items = rng.normal(size=(jdd.num_items, 8)).astype(np.float32)

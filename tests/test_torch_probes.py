@@ -7,10 +7,12 @@ import math
 import pytest
 import torch
 
+import chip_smoke
 from safer2_recommender_tpu_torch import Config, Dataset, DeviceData, get_model
 from safer2_recommender_tpu_torch.data.synth import powerlaw_dataset
-from safer2_recommender_tpu_torch.ops import woodbury
+from safer2_recommender_tpu_torch.ops import block_chol, woodbury
 from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
+from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
 from safer2_recommender_tpu_torch.probes import epoch_profile
 
 
@@ -67,3 +69,60 @@ def test_solver_product_shapes_records_the_batched_products():
     for (sa, sb), count in shapes.items():
         assert sa[0] == sb[0] == 2 and count > 0
         assert sa[2] == sb[1]        # inner dimensions agree
+
+
+@pytest.mark.parametrize("n, r, nbytes, by", [
+    (928, 64, 928 * 4 * (64 * 65 // 2 + 64 + 64 * 64), "bytes"),
+    (4096, 8, 4096 * 4 * (8 * 9 // 2 + 8 + 8 * 8), "bytes"),
+])
+def test_chol_inverse_bound_counts_each_byte_once(n, r, nbytes, by):
+    # the lower triangle of a and the ridge read once, out written once;
+    # 2 r^3 / 3 FLOP per system; at r <= 64 bytes bound it
+    b = chol_probe.bound(n, r)
+    assert (b["bytes"], b["bound_by"]) == (nbytes, by)
+    assert b["flop"] == pytest.approx(n * 2 * r ** 3 / 3)
+    assert b["bound_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("n_dots, products", [
+    (0, 0), (1, 1), (3, 2), (7, 3), (8, 4), (13, 5)])
+def test_bdot_bound_counts_the_fewest_products(n_dots, products):
+    # x^(n_dots + 1) by repeated squaring, e.g. x^9 = ((x^2)^2)^2 x
+    assert bdot_probe.products_needed(n_dots) == products
+
+
+@pytest.mark.parametrize("r, sizes", [(8, [0, 1, 15, 17, 4097]),
+                                      (32, [0, 1, 3, 5, 4097]),
+                                      (64, [0, 1, 2, 4097])])
+def test_chol_inverse_ragged_sizes_straddle_one_block(r, sizes):
+    assert chol_probe.ragged_sizes(r) == sizes
+
+
+def test_chol_inverse_errors_read_the_hard_systems():
+    gen = torch.Generator().manual_seed(0)
+    a, ridge = chol_probe.hard_batch(gen, 6, 16, "cpu")
+    want = block_chol.chol_inverse_small_ref(a, ridge)
+    e = chol_probe.errors(want.clone(), want)
+    assert e["finite"] and e["upper_zero"] and e["eye_err"] == 0.0
+    assert e["max_rel_err"] == e["rank_def_rel_err"] == 0.0
+    bad = want.clone()
+    bad[3, 0, 5] = 1e-3                   # above the diagonal
+    bad[1] *= 1.01                        # the rank-deficient system
+    e = chol_probe.errors(bad, want)
+    assert not e["upper_zero"]
+    assert e["rank_def_rel_err"] == pytest.approx(0.01, rel=1e-4)
+
+
+def test_chol_inverse_probe_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA device"):
+        chol_probe.run(device="cpu")
+
+
+def test_launch_histogram_counts_launches_below_one_wave():
+    shapes = [(928, 64, 64), (21, 8, 8), (21, 8, 8), (6000, 32, 32)]
+    hist = chip_smoke.launch_histogram(shapes, {8: 100, 32: 5280, 64: 1056})
+    assert hist[8] == {"launches": 2, "below_one_wave": 2, "one_wave": 100,
+                       "n_bins": {"[16, 32)": 2}}
+    assert hist[32]["below_one_wave"] == 0
+    assert hist[64]["n_bins"] == {"[512, 1024)": 1}
+    assert chip_smoke.most_frequent(shapes) == (21, 8, 8)

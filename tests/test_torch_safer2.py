@@ -13,9 +13,11 @@ import pytest
 import torch
 
 import safer2_recommender_tpu as jx
-from safer2_recommender_tpu_torch import (Config, Dataset, DeviceData,
-                                          FoldInData, get_model, interop)
+from safer2_recommender_tpu_torch import (SAFER2, Config, Dataset,
+                                          DeviceData, FoldInData, get_model,
+                                          interop)
 from safer2_recommender_tpu_torch.ops import solve, woodbury
+from safer2_recommender_tpu_torch.utils.device import DeviceUnavailable
 
 ML1M_DIR = os.environ.get(
     "FRECSYS_ML1M_DIR",
@@ -37,7 +39,8 @@ def small():
                       axis=0).astype(np.int32)
     jds = jx.Dataset(pairs[:, 0], pairs[:, 1])
     ds = Dataset(pairs[:, 0], pairs[:, 1])
-    return jds, jx.DeviceData.build(jds), ds, DeviceData.build(ds)
+    return (jds, jx.DeviceData.build(jds), ds,
+            DeviceData.build(ds, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -46,13 +49,15 @@ def ml1m_port():
     train = Dataset.from_csv(os.path.join(ML1M_DIR, "train.csv"))
     val_tr = Dataset.from_csv(os.path.join(ML1M_DIR, "validation_tr.csv"))
     val_te = Dataset.from_csv(os.path.join(ML1M_DIR, "validation_te.csv"))
-    return (train, DeviceData.build(train),
-            FoldInData.build(val_tr, val_te, num_items=train.num_items))
+    return (train, DeviceData.build(train, device="cpu"),
+            FoldInData.build(val_tr, val_te, num_items=train.num_items,
+                             device="cpu"))
 
 
 def _carry(jm, jdd, ds, dd, cfg_kw, steps=0):
     """A port model holding ``jm``'s current tables."""
-    tm = get_model("safer2", Config(**cfg_kw), ds.num_users, ds.num_items)
+    tm = get_model("safer2", Config(**cfg_kw), ds.num_users, ds.num_items,
+                   device="cpu")
     interop.state_from_jax(jm.export_state(jdd), tm, dd, steps=steps)
     return tm
 
@@ -101,7 +106,7 @@ def _check_against_oracle(ds, dd, dim):
     cfg = Config(dim=dim, uobs_weight=0.004, l2_reg=0.004, alpha=0.3,
                  bandwidth=0.15, xi_iterations=0, pd_iterations=1,
                  compute_dtype="f32", seed=5)
-    m = get_model("safer2", cfg, ds.num_users, ds.num_items)
+    m = get_model("safer2", cfg, ds.num_users, ds.num_items, device="cpu")
     m.initialize(dd)
     init = m.export_state(dd)
     u0 = init["user_emb"].astype(np.float64)
@@ -181,7 +186,8 @@ def dense():
         axis=0).astype(np.int32)
     jds = jx.Dataset(pairs[:, 0], pairs[:, 1])
     ds = Dataset(pairs[:, 0], pairs[:, 1])
-    return jds, jx.DeviceData.build(jds), ds, DeviceData.build(ds)
+    return (jds, jx.DeviceData.build(jds), ds,
+            DeviceData.build(ds, device="cpu"))
 
 
 def _assert_states_close(got, want, dim):
@@ -239,7 +245,8 @@ def test_trained_jax_state_with_bases_matches_next_epoch(dense):
     jm.initialize(jdd)
     for _ in range(2):
         jm.train_epoch(jdd)
-    tm = get_model("safer2", Config(**cfg), ds.num_users, ds.num_items)
+    tm = get_model("safer2", Config(**cfg), ds.num_users, ds.num_items,
+                   device="cpu")
     eig = (np.asarray(jm.state.eig_qu), np.asarray(jm.state.eig_qv))
     interop.state_from_jax(jm.export_state(jdd), tm, dd, steps=2, eig=eig)
     np.testing.assert_array_equal(tm.state.eig_qv.numpy(), eig[1])
@@ -259,7 +266,7 @@ def test_safer2_ml1m_quality_gates(ml1m_port):
     # tests/test_models_ml1m.py::test_safer2_ml1m on the port
     train, dd, fold = ml1m_port
     m = get_model("safer2", Config(**SAFER_CFG), train.num_users,
-                  train.num_items)
+                  train.num_items, device="cpu")
     m.initialize(dd)
     for _ in range(10):
         m.train_epoch(dd)
@@ -302,25 +309,52 @@ def test_unported_paths_raise(small):
     _, _, ds, _ = small
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         get_model("safer2", Config(compute_dtype="bf16"), ds.num_users,
-                  ds.num_items)
+                  ds.num_items, device="cpu")
     with pytest.raises(ValueError, match="ported: \\['safer2'\\]"):
-        get_model("ials", Config(), ds.num_users, ds.num_items)
-    m = get_model("safer2", Config(), ds.num_users, ds.num_items)
+        get_model("ials", Config(), ds.num_users, ds.num_items,
+                  device="cpu")
+    m = get_model("safer2", Config(), ds.num_users, ds.num_items,
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         m.recommend(ds, approx=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         solve.solve(torch.eye(8)[None], torch.ones(1, 8), use_cg=True)
 
 
+@pytest.mark.parametrize("entry", ["get_model", "Recommender",
+                                   "DeviceData.build", "FoldInData.build"])
+def test_entry_points_default_to_the_card(small, entry):
+    # with no device the entry points run on the card; without one they
+    # raise and tell the caller to pass device="cpu", never falling back
+    _, _, ds, _ = small
+    calls = {
+        "get_model": lambda: get_model("safer2", Config(**SAFER_CFG),
+                                       ds.num_users, ds.num_items),
+        "Recommender": lambda: SAFER2(Config(**SAFER_CFG), ds.num_users,
+                                      ds.num_items),
+        "DeviceData.build": lambda: DeviceData.build(ds),
+        "FoldInData.build": lambda: FoldInData.build(
+            ds, ds, num_items=ds.num_items).hist_size,
+    }
+    # decided inside the test, never at import
+    if torch.cuda.is_available():
+        assert calls[entry]().device.type == "cuda"
+    else:
+        with pytest.raises(DeviceUnavailable,
+                           match='CUDA is not available.*device="cpu"'):
+            calls[entry]()
+
+
 def test_rebucketed_data_remaps_trained_tables(small):
     # a trained state fed the same data bucketed differently (another
     # solver order) is remapped, not silently misaligned
     _, _, ds, dd = small
-    m = get_model("safer2", Config(**SAFER_CFG), ds.num_users, ds.num_items)
+    m = get_model("safer2", Config(**SAFER_CFG), ds.num_users, ds.num_items,
+                  device="cpu")
     m.initialize(dd)
     m.train_epoch(dd)
     before = m.export_state(dd)
-    dd4 = DeviceData.build(ds, growth=4)
+    dd4 = DeviceData.build(ds, device="cpu", growth=4)
     assert not torch.equal(dd4.user_order, dd.user_order)
     m._note_perms(dd4)
     after = m.export_state(dd4)
@@ -328,4 +362,5 @@ def test_rebucketed_data_remaps_trained_tables(small):
         np.testing.assert_array_equal(after[name], before[name])
     with pytest.raises(ValueError, match="id universe"):
         m._note_perms(DeviceData.build(Dataset(ds.user_ids[:-1],
-                                               ds.item_ids[:-1])))
+                                               ds.item_ids[:-1]),
+                                       device="cpu"))

@@ -228,7 +228,8 @@ def dense():
         axis=0).astype(np.int32)
     jds = jx.Dataset(pairs[:, 0], pairs[:, 1])
     ds = Dataset(pairs[:, 0], pairs[:, 1])
-    return jds, jx.DeviceData.build(jds), ds, DeviceData.build(ds)
+    return (jds, jx.DeviceData.build(jds), ds,
+            DeviceData.build(ds, device="cpu"))
 
 
 def _sweep_case(dense, dim, seed):
@@ -326,7 +327,8 @@ def hot():
     pairs = np.unique(np.concatenate([hot_, tail]), axis=0).astype(np.int32)
     jds = jx.Dataset(pairs[:, 0], pairs[:, 1])
     ds = Dataset(pairs[:, 0], pairs[:, 1])
-    return jds, jx.DeviceData.build(jds), ds, DeviceData.build(ds)
+    return (jds, jx.DeviceData.build(jds), ds,
+            DeviceData.build(ds, device="cpu"))
 
 
 def _patch_wide(monkeypatch):
@@ -380,7 +382,8 @@ def test_wide_safer2_epoch_matches_dense_and_jax(hot, monkeypatch, dim):
         jm = jx.get_model("safer2", jx.Config(**cfg), jds.num_users,
                           jds.num_items)
         jm.initialize(jdd)
-        tm = get_model("safer2", Config(**cfg), ds.num_users, ds.num_items)
+        tm = get_model("safer2", Config(**cfg), ds.num_users, ds.num_items,
+                       device="cpu")
         interop.state_from_jax(jm.export_state(jdd), tm, dd)
         jm.train_epoch(jdd)
         tm.train_epoch(dd)
@@ -412,7 +415,8 @@ def test_solve_groups_match_jax(hot, monkeypatch, slab):
     for mod in (jasm, tasm):
         monkeypatch.setattr(mod, "WIDE_SLAB_BYTES", slab)
     jdd = jx.DeviceData.build(jds, dim=dim, memory_budget_bytes=1 << 16)
-    dd = DeviceData.build(ds, dim=dim, memory_budget_bytes=1 << 16)
+    dd = DeviceData.build(ds, device="cpu", dim=dim,
+                          memory_budget_bytes=1 << 16)
     for tbs, jbs in ((dd.by_user, jdd.by_user), (dd.by_item, jdd.by_item)):
         assert [b.n_rows for b in tbs] == [b.n_rows for b in jbs]
         got = tcommon._solve_groups(tbs, dim, budget_bytes=1 << 17)

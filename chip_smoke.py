@@ -8,8 +8,9 @@ Phases, each printing lines to stdout tagged with its name:
   1. device: requires CUDA, turns TF32 off, prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles both kernels from csrc/ (sm_90a), one nvcc each,
-     started together, and prints what nvcc -Xptxas -v says of the
-     inverse-Cholesky kernel (registers, shared memory, spills);
+     started together, and prints what nvcc -Xptxas -v says of each
+     kernel of chol_inverse.cu and bdot.cu (registers, shared memory,
+     spills);
   3. kernel: compares the inverse-Cholesky kernel with its plain torch
      version on the card at r = 8/16/32/64 (probes/chol_inverse.py), at
      N = 4096 and the ragged N (0, 1, one block's systems +/- 1, 4097),
@@ -17,10 +18,15 @@ Phases, each printing lines to stdout tagged with its name:
      within 1e-6) and a rank-deficient one, and exact zeros above the
      diagonal; then times it at N = 4096 in turns beside its bound, the
      plain version and the library pair cholesky_ex + solve_triangular;
-  4. bdot: compares the batched-dot kernel with its plain torch version
-     (chained torch.bmm) at h = 32/64/128, N = 4096, 8 dots, within 1e-4
-     of max|plain| (the f32 summation order differs); the probe of
-     phase 11 times both;
+  4. bdot: compares the batched-dot kernel (x^(n_dots + 1) scaled, by
+     repeated squaring on the tensor cores) with its plain torch version
+     at h = 32/64/128, both precisions ("highest", 3xTF32; "default",
+     one TF32 pass), N = 0, 1, 2, one block's matrices +/- 1, 4096 and
+     4097, and n_dots = 0/1/3/8/13: within 1e-4 of max|plain| at
+     "highest" (the f32 summation order differs) and 1e-3 at "default"
+     (a last-bit difference flips a rounding to TF32), and at "highest"
+     within 1e-5 of max|float64 chain| (the function's oracle, on the
+     card); the probe of phase 11 times both;
   5. solve: spd_solve against a float64 torch.linalg.solve at
      d = 8/32/64/128/512;
   6. train: the port's CLI in-process, SAFER2 on the bundled ML-1M split
@@ -40,7 +46,10 @@ Phases, each printing lines to stdout tagged with its name:
      column-chunked wide assembly, each epoch's ms and the peak device
      memory;
  11. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
-     own path, beside plain torch.bmm and the dim-512 solver's products;
+     own path: at [4096, h, h] and 8 dots, each precision per call and
+     from a CUDA graph beside its bound, its plain version and
+     torch.linalg.matrix_power (f32, or TF32 for "default"); then plain
+     torch.matmul at the dim-512 solver's products;
      then the launches of the inverse-Cholesky kernel on the dim512 and
      synth50k paths by r and N against one wave of the card, and the
      kernel against its plain version at the largest and the most
@@ -70,7 +79,15 @@ REL_TOL = 1e-4          # kernel vs plain, well-conditioned systems
 REL_TOL_RANK_DEF = 1e-3  # the rank-deficient system (ridge 1e-2)
 EYE_TOL = 1e-6          # the all-zero system with a unit ridge vs identity
 SOLVE_RTOL, SOLVE_ATOL = 2e-3, 2e-4   # the JAX package's spd_solve bounds
-BDOT_REL_TOL = 1e-4     # bdot kernel vs chained torch.bmm, of max|plain|
+BDOT_REL_TOL = {       # bdot kernel vs its plain version, of max|plain|
+    "highest": 1e-4,    # the f32 summation order differs
+    # TF32 operands: a last-bit difference in f32 flips a rounding to TF32
+    # (one TF32 ulp, 2^-10); two plain versions of the same arithmetic
+    # (f32 and float64 torch.bmm on the same rounded operands) differ by
+    # up to 2.5e-4 (probes/bdot_design.py)
+    "default": 1e-3}
+BDOT_F64_TOL = 1e-5     # "highest" bdot kernel vs the float64 chain
+BDOT_DOTS = (0, 1, 3, 8, 13)
 NDCG20_MIN = 0.2
 ALPHA = 0.3
 DUAL_TOL = 0.02
@@ -211,30 +228,77 @@ def check_dual(res, tag: str) -> None:
           f"{res.mean_weights}")
 
 
+def bdot_sizes(bdot, h: int):
+    """N = 0, 1, 2, one block's matrices +/- 1, 4096 and 4097."""
+    per_block = bdot.matrices_per_block(h)
+    return sorted({0, 1, 2, max(per_block - 1, 0), per_block + 1, 4096,
+                   4097})
+
+
+def chain64(x, n_dots: int, scale: float):
+    """The function's oracle: the probe's chain in float64."""
+    import torch
+
+    xd = x.double()
+    acc = xd
+    for _ in range(n_dots):
+        acc = torch.bmm(acc, xd) * scale
+    return acc
+
+
 def phase_bdot(bdot, device):
-    """The batched-dot kernel against chained torch.bmm on the same
-    inputs; these launches compare and do not count toward the path
-    (the probe times both)."""
+    """The batched-dot kernel against its plain version (and, at
+    "highest", the float64 chain) at every h and precision, the ragged N
+    and n_dots in BDOT_DOTS; these launches compare and do not count
+    toward the path (the probe of phase 11 times both)."""
     import torch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
-    n, n_dots, scale = 4096, 8, 1e-2
-    by_h = {}
+    scale = 1e-2
+    by = {}
     for h in bdot.SIZES:
-        x = torch.randn((n, h, h), generator=gen, device=device) * 0.1
-        got = bdot.bdot(x, n_dots, scale)
-        want = bdot.bdot_ref(x, n_dots, scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"bdot h={h}: nonfinite")
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        check(rel <= BDOT_REL_TOL, f"bdot h={h}: rel err {rel} > "
-              f"{BDOT_REL_TOL}")
-        by_h[h] = dict(max_abs_err=err, rel_err=rel)
-        say("bdot", f"h={h} N={n} dots={n_dots}: max abs err {err:.3e}, "
-            f"rel err {rel:.3e} of max|plain| (tol {BDOT_REL_TOL:g})")
-    return by_h
+        sizes = bdot_sizes(bdot, h)
+        xs = {n: torch.randn((n, h, h), generator=gen, device=device) * 0.1
+              for n in sizes}
+        oracle = {(n, d): chain64(x, d, scale) for n, x in xs.items()
+                  for d in BDOT_DOTS if n}
+        for precision in bdot.PASSES:
+            worst = dict(max_abs_err=0.0, rel_err=0.0)
+            for n, x in xs.items():
+                for n_dots in BDOT_DOTS:
+                    tag = f"bdot h={h} {precision} N={n} dots={n_dots}"
+                    got = bdot.bdot(x, n_dots, scale, precision)
+                    want = bdot.bdot_ref(x, n_dots, scale, precision)
+                    torch.cuda.synchronize()
+                    check(got.shape == x.shape, f"{tag}: shape {got.shape}")
+                    check(bool(torch.isfinite(got).all()), f"{tag}: nonfinite")
+                    if n == 0:
+                        continue
+                    err = float((got - want).abs().max())
+                    rel = err / float(want.abs().max())
+                    check(rel <= BDOT_REL_TOL[precision],
+                          f"{tag}: rel err {rel} > {BDOT_REL_TOL[precision]}")
+                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                    worst["rel_err"] = max(worst["rel_err"], rel)
+                    if precision == "highest":
+                        f64 = oracle[n, n_dots]
+                        rel64 = float((got.double() - f64).abs().max()
+                                      / f64.abs().max())
+                        check(rel64 <= BDOT_F64_TOL, f"{tag}: rel err "
+                              f"{rel64} against float64 > {BDOT_F64_TOL}")
+                        worst["f64_rel_err"] = max(
+                            worst.get("f64_rel_err", 0.0), rel64)
+            by.setdefault(h, {})[precision] = worst
+            f64_part = (f", {worst['f64_rel_err']:.3e} of max|float64 chain|"
+                        f" (tol {BDOT_F64_TOL:g})"
+                        if precision == "highest" else "")
+            say("bdot", f"h={h} {precision}, N in {sizes}, dots in "
+                f"{list(BDOT_DOTS)}: max abs err {worst['max_abs_err']:.3e}"
+                f", rel err {worst['rel_err']:.3e} of max|plain| (tol "
+                f"{BDOT_REL_TOL[precision]:g}){f64_part}")
+        del xs, oracle
+    return by
 
 
 @contextlib.contextmanager
@@ -427,18 +491,20 @@ def main() -> int:
         f"{torch.get_float32_matmul_precision()}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         builds = [ex.submit(block_chol.build_kernel), ex.submit(bdot.build_kernel)]
         ptxas = ex.submit(chol_probe.ptxas_report)
+        bdot_ptxas = ex.submit(bdot_probe.ptxas_report)
         for f in builds:
             f.result()
-        ptxas = ptxas.result()
+        ptxas, bdot_ptxas = ptxas.result(), bdot_ptxas.result()
     say("build", f"chol_inverse.cu and bdot.cu built (in parallel) and "
         f"loaded in {time.perf_counter() - t0:.1f} s")
     say("build", "nvcc -Xptxas -v of chol_inverse.cu: " + " | ".join(ptxas))
+    say("build", "nvcc -Xptxas -v of bdot.cu: " + " | ".join(bdot_ptxas))
 
     by_r = phase_kernel(chol_probe, device)
-    by_h = phase_bdot(bdot, device)
+    bdot_err = phase_bdot(bdot, device)
     phase_solve(block_chol, chol_probe, device)
 
     block_chol.reset_launches()
@@ -510,7 +576,8 @@ def main() -> int:
         say("kernel", f"{key} {chol_probe.describe(main_t[key])}; max rel "
             f"err {main_t[key]['max_rel_err']:.3e} (tol {REL_TOL:g})")
     head = main_t["largest_ml1m_dim512"]
-    probe_h = {row["h"]: row for row in probe["bdot"]}
+    probe_rows = {(row["h"], row["precision"]): row for row in probe["bdot"]}
+    bdot_head = probe_rows[128, "highest"]
     print(json.dumps({"kernels": [{
         "name": "chol_inverse",
         "route": "cuda",
@@ -552,15 +619,21 @@ def main() -> int:
         "source": "safer2_recommender_tpu_torch/csrc/bdot.cu",
         "replaces": "scripts/probe_bdot.py:27 (pallas_bdot)",
         "launches": probe_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in by_h.values()),
-        "ms": probe_h[128]["ms"],
-        "plain_ms": probe_h[128]["plain_ms"],
-        "bound_ms": probe_h[128]["bound_ms"],
-        "bound_by": probe_h[128]["bound_by"],
-        "library_ms": probe_h[128]["library_ms"],
+        "max_abs_err": max(e["max_abs_err"] for v in bdot_err.values()
+                           for e in v.values()),
+        "ms": bdot_head["ms"],
+        "plain_ms": bdot_head["plain_ms"],
+        "bound_ms": bdot_head["bound_ms"],
+        "bound_by": bdot_head["bound_by"],
+        "library_ms": bdot_head["library_ms"],
         "shape": [4096, 128, 128],
-        "by_h": {str(h): dict(v, **probe_h[h]) for h, v in by_h.items()},
-        "probe": probe,
+        "precision": "highest",
+        "by_precision": {
+            str(h): {p: dict(bdot_err[h][p], **probe_rows[h, p])
+                     for p in bdot.PASSES}
+            for h in bdot.SIZES},
+        "ptxas": bdot_ptxas,
+        "solver_products": probe["solver"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

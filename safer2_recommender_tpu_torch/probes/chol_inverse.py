@@ -26,17 +26,13 @@ cores, both at its 700 W limit.
 
 from __future__ import annotations
 
-import re
-import subprocess
 import sys
-from typing import Callable, Dict, List
+from typing import List
 
 import torch
 
-from safer2_recommender_tpu_torch import native
+from safer2_recommender_tpu_torch import probes
 from safer2_recommender_tpu_torch.ops import block_chol
-from safer2_recommender_tpu_torch.probes import bound as probe_bound
-from safer2_recommender_tpu_torch.probes import cuda_ms
 
 N_FULL = 4096
 WARP_BLOCK = 128    # threads per block of the r <= 32 kernel
@@ -45,7 +41,7 @@ WARP_BLOCK = 128    # threads per block of the r <= 32 kernel
 def bound(n: int, r: int) -> dict:
     """Least time of ``inv(chol(.))`` over n systems of size r: the
     kernel reads only the lower triangle of each system."""
-    return probe_bound(4 * n * (r * (r + 1) // 2 + r + r * r),
+    return probes.bound(4 * n * (r * (r + 1) // 2 + r + r * r),
                        n * 2 * r ** 3 / 3)
 
 
@@ -108,33 +104,6 @@ def library_pair(a: torch.Tensor, ridge: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(low, eye, upper=False)
 
 
-def in_turns(fns: Dict[str, Callable]) -> Dict[str, float]:
-    """Each callable timed once in order and once in reverse (plain,
-    kernel, kernel, plain for two); the better reading of each."""
-    names = list(fns)
-    best: Dict[str, float] = {}
-    for name in names + names[::-1]:
-        ms = cuda_ms(fns[name])
-        best[name] = min(ms, best.get(name, ms))
-    return best
-
-
-def graph_ms(fn: Callable, calls: int = 20) -> float:
-    """Device ms per call of ``fn``, replayed from a CUDA graph of
-    ``calls`` calls: the kernel's own time, without the host's launch
-    overhead that ``cuda_ms`` includes for short launches."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay, iters=5, warmup=1) / calls
-
-
 def measure(a: torch.Tensor, ridge: torch.Tensor) -> dict:
     """Times at one shape in turns, with the bound and its share: the
     kernel per call through its wrapper (``ms``) and from a CUDA graph
@@ -147,8 +116,8 @@ def measure(a: torch.Tensor, ridge: torch.Tensor) -> dict:
             a + torch.diag_embed(ridge)),
     }
     fns["ms"] = lambda: block_chol.chol_inverse_small(a, ridge)
-    row = in_turns(fns)
-    row["device_ms"] = graph_ms(fns["ms"])
+    row = probes.in_turns(fns)
+    row["device_ms"] = probes.graph_ms(fns["ms"])
     n, r = a.shape[0], a.shape[1]
     row.update(bound(n, r))
     row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -157,29 +126,10 @@ def measure(a: torch.Tensor, ridge: torch.Tensor) -> dict:
     return row
 
 
-def ptxas_report(src: str = block_chol._SRC) -> List[str]:
-    """What ``nvcc -Xptxas -v`` says of each kernel in ``src``: one line
-    per kernel with its registers, shared memory, stack and spills."""
-    cmd = [native.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", "/dev/null",
-           src]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise native.BuildError(res.stdout + res.stderr)
-    lines: Dict[str, List[str]] = {}
-    name = None
-    for line in (res.stdout + res.stderr).splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            m = re.search(r"(chol_inverse_(?:warp|block\d+)_kernel)"
-                          r"(?:ILi(\d+)E)?",
-                          entry.group(1))
-            name = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
-                    else m.group(1) if m else entry.group(1))
-            lines[name] = []
-        elif name and ("Used" in line or "spill" in line):
-            lines[name].append(line.split("info    :")[-1].strip())
-    return [f"{k}: {'; '.join(v)}" for k, v in lines.items()]
+def ptxas_report() -> List[str]:
+    """``nvcc -Xptxas -v`` of the kernel's source, a line per kernel."""
+    return probes.ptxas_report(block_chol._SRC,
+                               r"chol_inverse_(?:warp|block\d+)_kernel")
 
 
 def check_r(r: int, device, gen) -> dict:

@@ -9,9 +9,12 @@ import torch
 
 import chip_smoke
 from safer2_recommender_tpu_torch import Config, Dataset, DeviceData, get_model
+from safer2_recommender_tpu_torch import probes
 from safer2_recommender_tpu_torch.data.synth import powerlaw_dataset
+from safer2_recommender_tpu_torch.ops import bdot as bdot_op
 from safer2_recommender_tpu_torch.ops import block_chol, woodbury
 from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
+from safer2_recommender_tpu_torch.probes import bdot_design
 from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
 from safer2_recommender_tpu_torch.probes import epoch_profile
 
@@ -63,6 +66,11 @@ def test_bdot_probe_refuses_the_cpu():
         bdot_probe.run(device="cpu")
 
 
+def test_bdot_design_probe_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA device"):
+        bdot_design.run(device="cpu")
+
+
 def test_solver_product_shapes_records_the_batched_products():
     shapes = bdot_probe.solver_product_shapes(2, 128, torch.device("cpu"))
     assert shapes, "spd_solve at d = 128 issued no batched product"
@@ -89,6 +97,42 @@ def test_chol_inverse_bound_counts_each_byte_once(n, r, nbytes, by):
 def test_bdot_bound_counts_the_fewest_products(n_dots, products):
     # x^(n_dots + 1) by repeated squaring, e.g. x^9 = ((x^2)^2)^2 x
     assert bdot_probe.products_needed(n_dots) == products
+
+
+@pytest.mark.parametrize("h, precision, bound_ms, by", [
+    (128, "highest", 0.4165, "operations"),   # 3 TF32 passes at 495 TFLOP/s
+    (128, "default", 0.1603, "bytes"),
+    (64, "highest", 0.0521, "operations"),
+    (64, "default", 0.0401, "bytes"),
+    (32, "highest", 0.0100, "bytes"),
+    (32, "default", 0.0100, "bytes"),
+])
+def test_bdot_bound_counts_the_tensor_core_rate(h, precision, bound_ms, by):
+    # x read and out written once; the 4 products of x^9 at the faster of
+    # 3 TF32 passes and f32 FMA ("highest") or one TF32 pass ("default")
+    b = bdot_probe.bound(4096, h, 8, precision)
+    assert b["bytes"] == 2 * 4 * 4096 * h * h
+    assert b["flop"] == 2.0 * 4096 * h ** 3 * 4
+    assert (round(b["bound_ms"], 4), b["bound_by"]) == (bound_ms, by)
+
+
+def test_bdot_design_variants_apply_to_the_kernel_source():
+    # each variant replaces text that bdot.cu holds exactly once
+    with open(bdot_op._SRC) as f:
+        src = f.read()
+    texts = bdot_design.variants(src)
+    assert list(texts) == ["kernel", *bdot_design.SUBSTITUTIONS]
+    assert texts["kernel"] == src
+    for name in bdot_design.SUBSTITUTIONS:
+        assert texts[name] != src, name
+    with pytest.raises(ValueError, match="exactly once"):
+        bdot_design.variants(src.replace("tf32_bits(v)", "tf32_bits(w)"))
+
+
+def test_probe_bound_takes_the_arithmetic_rate():
+    assert probes.bound(0, 67e9)["bound_ms"] == pytest.approx(1.0)
+    assert probes.bound(0, 495e9, probes.TF32_TENSOR_FLOP_PER_S)[
+        "bound_ms"] == pytest.approx(1.0)
 
 
 @pytest.mark.parametrize("r, sizes", [(8, [0, 1, 15, 17, 4097]),

@@ -26,7 +26,7 @@ Phases, each printing lines to stdout tagged with its name:
      "highest" (the f32 summation order differs) and 1e-3 at "default"
      (a last-bit difference flips a rounding to TF32), and at "highest"
      within 1e-5 of max|float64 chain| (the function's oracle, on the
-     card); the probe of phase 11 times both;
+     card); the probe of phase 13 times both;
   5. solve: spd_solve against a float64 torch.linalg.solve at
      d = 8/32/64/128/512;
   6. train: the port's CLI in-process, SAFER2 on the bundled ML-1M split
@@ -36,22 +36,36 @@ Phases, each printing lines to stdout tagged with its name:
      model; ids in range and outside each user's history;
   8. dim64: the same run at dim 64 for 3 epochs (the r = 64 kernel
      path); finite tables and the dual-weight gate;
-  9. dim512: the same run at dim 512 for 10 epochs (Woodbury solves,
+  9. dim512: the same run at dim 512 for 5 epochs (Woodbury solves,
      rotated direct solves, the warm eigh refresh): the quality gates,
      finite tables, rows on the Woodbury and rotated paths, a warm
      refresh, kernel launches at every r, then one recommend() batch of
      256 users with the serve checks;
  10. synth50k: the library API on the 50k-user power-law workload at the
-     MSD config (dim 512) for 3 epochs: finite tables, rows through the
+     MSD config (dim 512) for 2 epochs: finite tables, rows through the
      column-chunked wide assembly, each epoch's ms and the peak device
      memory;
- 11. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
+ 11. models: the CLI in-process for each of the other five models on
+     ML-1M at dim 32 (block 8 for the ++ models) at the reference tests'
+     configs, 10 epochs (CVaR-MF: 50): NDCG@20 >= 0.2, finite tables,
+     SAFER2++'s mean dual weight within alpha +/- 0.02 after every
+     epoch, kernel launches by r;
+ 12. synth50k-models: SAFER2++, iALS++, iALS, ERM-MF and CVaR-MF through
+     the library API on the 50k workload at the MSD config (dim 512,
+     block 64): initialize, one warm-up epoch and two timed ones, then
+     for the ++ models one recommend() batch of the 256 users with the
+     longest histories (the fold-in's 8 blockwise sweeps); per model the
+     epoch ms, the rows by solve path, the kernel launches by r and how
+     many sit under one wave, the peak device memory; finite tables,
+     wide rows, and r = 64 launches for both ++ models;
+ 13. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
      own path: at [4096, h, h] and 8 dots, each precision per call and
      from a CUDA graph beside its bound, its plain version and
      torch.linalg.matrix_power (f32, or TF32 for "default"); then plain
      torch.matmul at the dim-512 solver's products;
-     then the launches of the inverse-Cholesky kernel on the dim512 and
-     synth50k paths by r and N against one wave of the card, and the
+     then the launches of the inverse-Cholesky kernel on the dim512,
+     synth50k and synth50k-models paths by r and N against one wave of
+     the card, and the
      kernel against its plain version at the largest and the most
      frequent shape of each path, compared and timed as in phase 3.
 Every path's kernel launch counts are set to 0 just before it and read
@@ -94,6 +108,21 @@ DUAL_TOL = 0.02
 README_ARGS = ["--model_name", "safer2", "--uobs_weight", "0.004",
                "--l2_reg", "0.004", "--alpha", str(ALPHA),
                "--bandwidth", "0.15"]
+# the reference tests' ML-1M configs of the other five models
+# (tests/test_models_ml1m.py), run at dim 32 with block 8: (args, epochs)
+_IALS_ARGS = ["--uobs_weight", "0.1", "--l2_reg", "0.003",
+              "--l2_reg_exp", "1.0"]
+MODEL_RUNS = {
+    "ials": (_IALS_ARGS, 10),
+    "erm_mf": (["--uobs_weight", "0.004", "--l2_reg", "0.005",
+                "--alpha", str(ALPHA)], 10),
+    "ialspp": (_IALS_ARGS + ["--block_size", "8"], 10),
+    "safer2pp": (README_ARGS[2:] + ["--block_size", "8"], 10),
+    "cvar_mf": (["--uobs_weight", "0.008", "--l2_reg", "0.002",
+                 "--alpha", str(ALPHA), "--stepsize", "0.4",
+                 "--seed", "2"], 50),
+}
+SYNTH_MODELS = ("safer2pp", "ialspp", "ials", "erm_mf", "cvar_mf")
 
 
 def say(phase: str, msg: str) -> None:
@@ -212,10 +241,10 @@ def phase_solve(block_chol, chol_probe, device):
         + ", ".join(f"{d}: {w:.3f}" for d, w in worst.items()))
 
 
-def train(cli, dim: int, epochs: int):
+def train(cli, dim: int, epochs: int, args=README_ARGS):
     base = [os.path.join(ML1M, f) for f in
             ("train.csv", "validation_tr.csv", "validation_te.csv")]
-    argv = README_ARGS + [
+    argv = list(args) + [
         "--train_data", base[0], "--test_train_data", base[1],
         "--test_test_data", base[2], "--dim", str(dim),
         "--epoch", str(epochs), "--device", "cuda"]
@@ -250,7 +279,7 @@ def phase_bdot(bdot, device):
     """The batched-dot kernel against its plain version (and, at
     "highest", the float64 chain) at every h and precision, the ragged N
     and n_dots in BDOT_DOTS; these launches compare and do not count
-    toward the path (the probe of phase 11 times both)."""
+    toward the path (the probe of phase 13 times both)."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -369,7 +398,7 @@ def phase_dim512(cli, block_chol, woodbury):
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
     with recorded_chol_shapes(block_chol) as shapes:
-        res = train(cli, 512, 10)
+        res = train(cli, 512, 5)
     launches = dict(block_chol.LAUNCHES)
     paths = dict(woodbury.SOLVE_PATHS)
     peak = torch.cuda.max_memory_allocated()
@@ -384,7 +413,7 @@ def phase_dim512(cli, block_chol, woodbury):
     check(paths["refresh_warm"] > 0, f"dim 512: no warm refresh: {paths}")
     check(all(launches[r] > 0 for r in block_chol.KERNEL_SIZES),
           f"dim 512: no kernel launch at some r: {launches}")
-    say("dim512", f"ML-1M SAFER2 dim 512, 10 epochs: NDCG@20 {ndcg20:.4f} "
+    say("dim512", f"ML-1M SAFER2 dim 512, 5 epochs: NDCG@20 {ndcg20:.4f} "
         f"(gate {NDCG20_MIN}); mean dual weight "
         f"{[round(w, 4) for w in res.mean_weights]}; epoch ms "
         f"{res.epoch_ms}; solve paths (padded rows; refreshes) {paths}; "
@@ -408,19 +437,16 @@ def phase_dim512(cli, block_chol, woodbury):
                 eigh_ms=eigh_ms, peak_bytes=peak)
 
 
-def phase_synth(block_chol, woodbury, device, epochs=3):
+def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
     """The library API on the MSD-shaped synthetic workload (50k x 40k,
     dim 512) at the MSD config (bench.py's north star): finite tables and
     rows through the wide (column-chunked) assembly; epoch ms and peak
-    device memory."""
+    device memory. ``workload`` is ``(Dataset, DeviceData, Config)``."""
     import torch
 
     from safer2_recommender_tpu_torch import get_model
-    from safer2_recommender_tpu_torch.probes import epoch_profile
 
-    t0 = time.perf_counter()
-    ds, dd, cfg = epoch_profile.workload("synth50k", device)
-    setup_s = time.perf_counter() - t0
+    ds, dd, cfg = workload
     model = get_model("safer2", cfg, ds.num_users, ds.num_items,
                       device=device)
     torch.cuda.synchronize()
@@ -454,6 +480,139 @@ def phase_synth(block_chol, woodbury, device, epochs=3):
         f"launches by r {launches}; peak device memory {peak} B")
     return dict(epoch_ms=epoch_ms, paths=paths, launches=launches,
                 peak_bytes=peak, shapes=shapes)
+
+
+def phase_models(cli, block_chol):
+    """The other five models through the CLI on ML-1M at dim 32 (block 8
+    for the ++ models), at the reference tests' configs: the quality
+    gates, finite tables on the card, and the kernel launches by r."""
+    out = {}
+    for name, (args, epochs) in MODEL_RUNS.items():
+        block_chol.reset_launches()
+        res = train(cli, 32, epochs, ["--model_name", name] + args)
+        launches = dict(block_chol.LAUNCHES)
+        state = res.model.state
+        check(res.model.name == name, f"{name}: got a {res.model.name}")
+        check(state.user_emb.is_cuda and state.item_emb.is_cuda,
+              f"{name}: model tables are not on the GPU")
+        check(finite_tables(state), f"{name}: nonfinite tables")
+        check(sum(launches.values()) > 0,
+              f"{name}: the kernel was never launched")
+        ndcg20 = float(res.metrics.mean_ndcg()[2])
+        check(ndcg20 >= NDCG20_MIN, f"{name}: NDCG@20 {ndcg20} < {NDCG20_MIN}")
+        if name == "safer2pp":
+            check_dual(res, name)
+        say("models", f"ML-1M {name} dim 32, {epochs} epochs: NDCG@20 "
+            f"{ndcg20:.4f} (gate {NDCG20_MIN}); mean dual weight, last 3 "
+            f"epochs {[round(w, 4) for w in res.mean_weights[-3:]]}"
+            + (f" (gate {ALPHA} +/- {DUAL_TOL}, every epoch)"
+               if name == "safer2pp" else "")
+            + f"; epoch ms {res.epoch_ms[:10]}; kernel launches by r "
+            f"{launches}")
+        out[name] = dict(ndcg20=ndcg20, epoch_ms=res.epoch_ms,
+                         launches=launches,
+                         mean_weights=res.mean_weights[-3:])
+    return out
+
+
+def longest_histories(ds, n: int):
+    """The histories of the ``n`` users of ``ds`` with the most items, as
+    a Dataset (ties: the lower id first)."""
+    import numpy as np
+
+    from safer2_recommender_tpu_torch.data.dataset import Dataset
+
+    sizes = np.bincount(ds.user_ids, minlength=ds.num_users)
+    top = np.argsort(-sizes, kind="stable")[:n]
+    m = np.isin(ds.user_ids, top)
+    return Dataset(ds.user_ids[m], ds.item_ids[m]), sizes[top]
+
+
+def phase_synth_models(block_chol, woodbury, device, workload, wave):
+    """This slice's path at full width: each of SYNTH_MODELS through the
+    library API on the 50k x 40k workload at the MSD config (dim 512,
+    block 64): initialize, one warm-up epoch, two timed epochs
+    (synchronized host clock); for the ++ models then one recommend()
+    batch of the 256 users with the longest histories, whose fold-in runs
+    ``eval_fold_in_epochs`` blockwise sweeps over every bucket wider than
+    dim / 2. ``wave[r]`` is the systems the card holds at once."""
+    import torch
+
+    from safer2_recommender_tpu_torch import get_model
+
+    ds, dd, cfg = workload
+    hist, sizes = longest_histories(ds, 256)
+    r_blk = cfg.block_size      # the ++ models' block solves: r = 64
+    out = {}
+    for name in SYNTH_MODELS:
+        model = get_model(name, cfg, ds.num_users, ds.num_items,
+                          device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        block_chol.reset_launches()
+        woodbury.reset_solve_paths()
+        epoch_ms, fold = [], None
+        with recorded_chol_shapes(block_chol) as shapes:
+            model.initialize(dd)
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.train_epoch(dd)
+                torch.cuda.synchronize()
+                epoch_ms.append((time.perf_counter() - t0) * 1000)
+            train_launches = dict(block_chol.LAUNCHES)
+            train_paths = dict(woodbury.SOLVE_PATHS)
+            if name in ("safer2pp", "ialspp"):
+                woodbury.reset_solve_paths()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                users, ids = model.recommend(hist, k=10)
+                torch.cuda.synchronize()
+                fold = dict(
+                    ms=(time.perf_counter() - t0) * 1000,
+                    paths=dict(woodbury.SOLVE_PATHS),
+                    launches={r: block_chol.LAUNCHES[r] - train_launches[r]
+                              for r in block_chol.KERNEL_SIZES})
+                check(ids.shape == (256, 10) and users.size == 256,
+                      f"{name} fold-in: shape {ids.shape}")
+                check(bool(((ids >= 0) & (ids < ds.num_items)).all()),
+                      f"{name} fold-in: item id out of range")
+                check(fold["launches"][r_blk] > 0
+                      and fold["paths"]["block"] > 0,
+                      f"{name} fold-in: no blockwise r = {r_blk} solve: "
+                      f"{fold}")
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(block_chol.LAUNCHES)
+        check(len(shapes) == sum(launches.values()),
+              f"{name}: launches do not match calls")
+        check(finite_tables(model.state), f"{name} at 50k: nonfinite tables")
+        check(train_paths["wide"] > 0, f"{name}: no wide rows: {train_paths}")
+        if name in ("safer2pp", "ialspp"):
+            check(train_launches[r_blk] > 0 and train_paths["block"] > 0,
+                  f"{name}: no r = {r_blk} block solve in training: "
+                  f"{train_launches} {train_paths}")
+        by_r = launch_histogram(shapes, wave)
+        under = {r: h["below_one_wave"] for r, h in by_r.items()}
+        say("synth50k-models", f"{name}, dim {cfg.dim}, block "
+            f"{cfg.block_size}: warm-up epoch {epoch_ms[0]:.1f} ms, then "
+            f"{[round(t, 1) for t in epoch_ms[1:]]} ms (synchronized host "
+            f"clock); initialize + 3 epochs: solve paths (padded rows; "
+            f"refreshes) {train_paths}; kernel launches by r "
+            f"{train_launches}"
+            + (f"; fold-in of the 256 longest histories ({int(sizes.min())}"
+               f"-{int(sizes.max())} items) + scoring {fold['ms']:.1f} ms, "
+               f"paths {fold['paths']}, launches by r {fold['launches']}"
+               if fold else "")
+            + f"; launches under one wave by r {under} of {launches}; peak "
+            f"device memory {peak} B")
+        out[name] = dict(epoch_ms=epoch_ms, paths=train_paths,
+                         launches=train_launches, fold_in=fold,
+                         total_launches=sum(launches.values()),
+                         launch_histogram=by_r, peak_bytes=peak,
+                         shapes=shapes)
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -548,28 +707,48 @@ def main() -> int:
     ndcg512 = float(d512.pop("res").metrics.mean_ndcg()[2])
     shapes512 = d512.pop("shapes")
 
-    synth = phase_synth(block_chol, woodbury, device)
+    from safer2_recommender_tpu_torch.probes import epoch_profile
+
+    t0 = time.perf_counter()
+    workload = epoch_profile.workload("synth50k", device)
+    synth = phase_synth(block_chol, woodbury, device, workload,
+                        time.perf_counter() - t0)
+
+    models = phase_models(cli, block_chol)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave = {r: sms * block_chol.resident_systems(r)
+            for r in block_chol.KERNEL_SIZES}
+    synth_models = phase_synth_models(block_chol, woodbury, device, workload,
+                                      wave)
+    del workload
+    torch.cuda.empty_cache()
 
     bdot.reset_launches()
     probe = bdot_probe.run(device=device)
     probe_launches = bdot.LAUNCHES
     check(probe_launches > 0, "probe: the bdot kernel was never launched")
 
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    wave = {r: sms * block_chol.resident_systems(r)
-            for r in block_chol.KERNEL_SIZES}
     shapes50k = synth.pop("shapes")
+    shapes_pp = synth_models["safer2pp"]["shapes"]
     hist = {"ml1m_dim512": launch_histogram(shapes512, wave),
             "synth50k_dim512": launch_histogram(shapes50k, wave)}
+    for name, m in synth_models.items():
+        del m["shapes"]
+        hist[f"synth50k_{name}"] = m.pop("launch_histogram")
     say("kernel", f"one wave (SMs x systems resident on one) by r: {wave}; "
-        f"launches by r and N, ML-1M dim 512 (10 epochs + eval + serve "
-        f"batch excluded) and synth50k (3 epochs): {json.dumps(hist)}")
+        f"launches by r and N, ML-1M dim 512 (5 epochs + eval; the serve "
+        f"batch excluded), synth50k (SAFER2, 2 epochs) and each model of "
+        f"synth50k-models (initialize + 3 epochs + a fold-in for the ++ "
+        f"models): {json.dumps(hist)}")
     size = lambda sh: sh[0] * sh[1] * sh[2]
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
         "most_frequent_ml1m_dim512": most_frequent(shapes512),
         "largest_synth50k": max(shapes50k, key=size),
-        "most_frequent_synth50k": most_frequent(shapes50k)}
+        "most_frequent_synth50k": most_frequent(shapes50k),
+        "largest_synth50k_safer2pp": max(shapes_pp, key=size),
+        "most_frequent_synth50k_safer2pp": most_frequent(shapes_pp)}
     main_t = {}
     for key, shape in main_shapes.items():
         main_t[key] = time_at(chol_probe, device, shape)
@@ -586,7 +765,11 @@ def main() -> int:
                      "(_leaf_lane/_leaf_kernel); "
                      "safer2_recommender_tpu/ops/block_chol.py:163 "
                      "(_lane_matmul/_lane_matmul_kernel)"),
-        "launches": sum(d512["launches"].values()),
+        "launches": (sum(d512["launches"].values())
+                     + sum(sum(m["launches"].values())
+                           for m in models.values())
+                     + sum(m["total_launches"]
+                           for m in synth_models.values())),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
                            + [v["max_abs_err"] for v in main_t.values()]),
         "ms": head["ms"],
@@ -606,13 +789,22 @@ def main() -> int:
             "ml1m_dim64": dim64_launches,
             "ml1m_dim512": d512["launches"],
             "serve_dim512": d512["serve_launches"],
-            "synth50k_dim512": synth["launches"]},
+            "synth50k_dim512": synth["launches"],
+            "ml1m_dim32_models": {n: m["launches"]
+                                  for n, m in models.items()},
+            "synth50k_models": {n: m["launches"]
+                                for n, m in synth_models.items()},
+            "synth50k_models_fold_in": {
+                n: m["fold_in"]["launches"]
+                for n, m in synth_models.items() if m["fold_in"]}},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
         "ml1m_dim512_ndcg20": ndcg512,
         "ml1m_dim512": d512,
         "synth50k": synth,
+        "ml1m_dim32_models": models,
+        "synth50k_models": synth_models,
     }, {
         "name": "bdot",
         "route": "cuda",

@@ -9,7 +9,9 @@ package's (``safer2_recommender_tpu/cli.py``, itself the reference's
         --dim 32 --uobs_weight 0.004 --l2_reg 0.004 --alpha 0.3 \
         --bandwidth 0.15 --epoch 50 --device cuda
 
-The log lines are the JAX CLI's. ``--device`` (default ``cuda``) picks
+All six models run (``ials``, ``ialspp``, ``erm_mf``, ``cvar_mf``,
+``safer2``, ``safer2pp``), and the log lines are the JAX CLI's.
+``--device`` (default ``cuda``) picks
 the device; a missing CUDA device is an error, never a silent switch to
 the CPU. Flags of features not ported yet are refused with the ROADMAP
 item that ports them.
@@ -135,9 +137,6 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
         if is_set(args):
             parser.error(f"{flag} is not ported to PyTorch yet (ROADMAP "
                          f"Queue 1 item {item})")
-    if args.model_name != "safer2":
-        parser.error(f"--model_name {args.model_name} is not ported to "
-                     "PyTorch yet; ported: safer2 (ROADMAP Queue 1)")
     try:
         device = resolve_device(args.device)
     except DeviceUnavailable as e:

@@ -6,10 +6,9 @@ Mirrors the flag surface of the reference CLI (reference
 tools/run_model.cc:129-231) so a user of the reference can port commands
 1:1. Defaults equal the reference defaults.
 
-Fields of unported features (``use_cg``, ``block_size``,
-``block_interleaved``, ``eval_fold_in_epochs``) stay so a JAX Config's
-values carry over unchanged; the port raises ``NotImplementedError``
-where one would change the computation.
+Fields of unported features (``use_cg``, ``block_interleaved``) stay so
+a JAX Config's values carry over unchanged; the port raises
+``NotImplementedError`` where one would change the computation.
 """
 
 from __future__ import annotations
@@ -72,14 +71,16 @@ class Config:
     # Number of eval users scored per chunk (bounds the
     # [chunk, num_items] score matrix).
     eval_chunk: int = 1024
-    # Fold-in epochs for the blockwise (++) models' evaluation (not
-    # ported; the reference hard-codes 8, ialspp.h:152).
+    # Fold-in sweeps of the blockwise (++) models' evaluation (the
+    # reference hard-codes 8, ialspp.h:152).
     eval_fold_in_epochs: int = 8
     # Warm-started eigh refresh tolerance of the Woodbury path at
     # dim >= 256 (ops/woodbury.py::refresh_eigh); 0 takes a full eigh
     # every sweep.
     eig_refresh_tol: float = 8e-2
-    # Reference-order blockwise training of the ++ models (not ported).
+    # Reference-order blockwise training of the ++ models (not ported:
+    # raises where it would engage, dim % block_size == 0; otherwise
+    # the frozen sweep runs with a warning, as in the JAX package).
     block_interleaved: bool = False
 
     def replace(self, **kw) -> "Config":

@@ -432,8 +432,11 @@ class Recommender:
 
 class SaferFamilyMixin:
     """Shared SAFER-family machinery: the two regularizer formulas
-    (reference safer2.h:418-432), the weighted exact-solve sweeps and
-    the one-shot fold-in."""
+    (reference safer2.h:418-432, erm_mf.h:384-395) every family member
+    (erm_mf, cvar_mf, safer2, safer2pp) uses, plus the weighted
+    exact-solve sweeps and one-shot fold-in that erm_mf and safer2 share
+    (cvar_mf overrides with gradient steps and a closed-form eval;
+    safer2pp with blockwise sweeps)."""
 
     def _user_reg(self) -> float:
         # reference safer2.h:418-421
@@ -454,10 +457,30 @@ class SaferFamilyMixin:
                             torch.arange(dd.num_items, device=dd.device))
         return ur, ir
 
+    def _init_losses(self, dd: DeviceData, **kw) -> None:
+        """The SAFER family's Initialize: the per-user (halved) losses of
+        the initial tables, so the pre-training state is inspectable;
+        ``kw`` are further state fields to set."""
+        self._note_perms(dd)
+        s = self.state
+        loss = common.user_losses(s.user_emb, s.item_emb, s.item_gramian,
+                                  dd.by_user, dd.num_users,
+                                  self.cfg.uobs_weight, halve=True)
+        self.state = s.replace(user_loss=loss, **kw)
+
+    @staticmethod
+    def _norm_dual(dd: DeviceData, dual: torch.Tensor) -> torch.Tensor:
+        """z_u / |H_u|, the item side's per-slot weights (0 for absent
+        users)."""
+        return torch.where(dd.user_hist_size > 0,
+                           dual / dd.user_hist_size.clamp(min=1.0),
+                           torch.zeros_like(dual))
+
     def _step_u(self, ue, item_emb, gramian, buckets, dual, pre_list=None,
                 q_prev=None):
         """Weighted mean-normalized exact U-solves (reference
-        safer2.h:104-163). Returns (new table, new eigenbasis or None)."""
+        safer2.h:104-163 / erm_mf.h:91-151). Returns (new table, new
+        eigenbasis or None)."""
         cfg = self.cfg
         reg = self._user_reg()
         eig = woodbury.maybe_eigh(gramian, cfg.dim, use_cg=cfg.use_cg,
@@ -475,16 +498,13 @@ class SaferFamilyMixin:
         return out, (eig[0] if eig is not None else None)
 
     def _step_v(self, v, user_emb, dd: DeviceData, dual, q_prev=None):
-        """Dual-weighted exact V-solves (reference safer2.h:166-221). The
-        weighted Gramian U^T diag(z) U spans the full table incl. id
-        gaps and is recomputed every call. Returns (new table, new
-        eigenbasis or None)."""
+        """Dual-weighted exact V-solves (reference safer2.h:166-221 /
+        erm_mf.h:153-210). The weighted Gramian U^T diag(z) U spans the
+        full table incl. id gaps and is recomputed every call. Returns
+        (new table, new eigenbasis or None)."""
         cfg = self.cfg
         w_gram = user_emb.T @ (user_emb * dual[:, None])
-        norm_dual = torch.where(
-            dd.user_hist_size > 0,
-            dual / dd.user_hist_size.clamp(min=1.0),
-            torch.zeros_like(dual))
+        norm_dual = self._norm_dual(dd, dual)
         eig = woodbury.maybe_eigh(w_gram, cfg.dim, use_cg=cfg.use_cg,
                                   q_prev=q_prev,
                                   refresh_tol=cfg.eig_refresh_tol)
@@ -499,7 +519,8 @@ class SaferFamilyMixin:
         return out, (eig[0] if eig is not None else None)
 
     def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
-        """StepU with weight 1.0 (reference safer2.h:246-252)."""
+        """StepU with weight 1.0 (reference safer2.h:246-252,
+        erm_mf.h:234-244)."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
         ones = torch.ones((fold.n_pad,), device=self.device)
         return self._step_u(ue, state.item_emb, state.item_gramian,

@@ -1,6 +1,7 @@
-"""Shared batched building blocks of the models (the counterpart of
-``safer2_recommender_tpu/models/common.py``: the exact solve sweeps
-and the loss pass of the SAFER family).
+"""Shared batched building blocks of the six models (the counterpart
+of ``safer2_recommender_tpu/models/common.py``: the exact solve sweeps,
+the gradient steps' matvec form, the blockwise sweep of the ++ models
+and the loss pass).
 
 Each function maps a whole padded bucket of users or items to new
 embedding rows. Conventions:
@@ -19,8 +20,9 @@ runs the buckets in order, one after another.
 
 from __future__ import annotations
 
+import dataclasses
 from collections import Counter
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -120,6 +122,26 @@ def assemble_from_params(p: SolveParams, gram: torch.Tensor):
     return a, rhs
 
 
+def grad_from_params(p: SolveParams, gram: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """A @ x - rhs via matvecs (no [N, d, d] materialization): the
+    CVaR-MF subgradient (reference cvar_mf.h:133, :179). A streamed
+    (wide) bucket's rows are counted in ``woodbury.SOLVE_PATHS``."""
+    ax0 = p.c0[:, None] * x + p.c1[:, None] * (x @ gram)
+    if p.wide is not None:
+        wh = p.wide
+        ax_h, rhs = assemble.wide_matvec(wh.table, wh.bucket, x,
+                                         extra_vec=wh.extra_vec)
+        if wh.row_coef is not None:
+            ax_h = ax_h * wh.row_coef[:, None]
+            rhs = rhs * wh.row_coef[:, None]
+        woodbury.SOLVE_PATHS["wide"] += wh.bucket.n_rows
+        return ax0 + ax_h - rhs
+    vx = assemble.rowwise_dot(p.emb, x)
+    ax = ax0 + assemble.row_sums(p.emb, col_weight=p.wt * vx)
+    return ax - assemble.row_sums(p.emb, col_weight=p.r)
+
+
 def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
                 gram: torch.Tensor, *, eig=None, use_cg: bool = False,
                 pre_list=None) -> torch.Tensor:
@@ -187,11 +209,43 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
     return table
 
 
+def sweep_apply(buckets: Sequence[Bucket], pre_list, carry, body):
+    """``body(carry, bucket, pre) -> carry`` over the buckets in order;
+    ``pre_list`` holds one entry per bucket, or is None."""
+    if pre_list is None:
+        pre_list = [None] * len(buckets)
+    if len(pre_list) != len(buckets):
+        raise ValueError(f"pre_list has {len(pre_list)} entries for "
+                         f"{len(buckets)} buckets")
+    for b, pre in zip(buckets, pre_list):
+        carry = body(carry, b, pre)
+    return carry
+
+
+def params_ials(table_other: torch.Tensor, bucket: Bucket,
+                reg_rows: torch.Tensor, uobs: float,
+                pre=None) -> SolveParams:
+    """iALS normal equations (reference ials.h:88-144):
+
+    A = uobs * G + reg * I + sum_h v v^T ;  rhs = sum_h v.
+    """
+    c1 = torch.full((bucket.n_rows,), uobs, dtype=torch.float32,
+                    device=table_other.device)
+    if pre is None and assemble.is_wide(bucket, table_other.shape[1]):
+        return SolveParams(emb=None, wt=None, r=None, c0=reg_rows, c1=c1,
+                           wide=woodbury.WideHist(table_other, bucket,
+                                                  row_coef=None,
+                                                  extra_vec=None))
+    emb, mask = pre or assemble.gather_history(table_other, bucket)
+    return SolveParams(emb=emb, wt=mask, r=mask, c0=reg_rows, c1=c1)
+
+
 def params_weighted_mean(table_other: torch.Tensor, bucket: Bucket,
                          reg_rows: torch.Tensor, uobs: float,
                          row_weight: torch.Tensor,
                          pre=None) -> SolveParams:
-    """SAFER-family user-side system (reference safer2.h:104-163):
+    """SAFER-family user-side system (reference safer2.h:104-163,
+    erm_mf.h:91-151):
 
     A = w * (sum_h v v^T / |H| + uobs * G) + reg * I
     rhs = (w / |H|) * sum_h v
@@ -212,8 +266,8 @@ def params_weighted_mean(table_other: torch.Tensor, bucket: Bucket,
 def params_weighted_item(table_other: torch.Tensor, bucket: Bucket,
                          reg_rows: torch.Tensor, uobs: float,
                          norm_dual: torch.Tensor) -> SolveParams:
-    """SAFER-family item-side system (reference safer2.h:166-221),
-    against the dual-weighted Gramian U^T diag(z) U:
+    """SAFER-family item-side system (reference safer2.h:166-221,
+    erm_mf.h:153-210), against the dual-weighted Gramian U^T diag(z) U:
 
     A = uobs * G_w + reg * I + sum_h wt_u u u^T
     rhs = sum_h wt_u u            with wt_u = z_u / |H_u|.
@@ -228,6 +282,196 @@ def params_weighted_item(table_other: torch.Tensor, bucket: Bucket,
     emb, _, wt = assemble.gather_history_extra(table_other, norm_dual,
                                                bucket)
     return SolveParams(emb=emb, wt=wt, r=wt, c0=reg_rows, c1=c1)
+
+
+# --------------------------------------------------------------------------
+# Blockwise (subspace) solves with the per-slot prediction cache
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """Per-row coefficients of one bucket's block delta systems:
+
+        A   = ch * (sum_h wt v_loc v_loc^T) + cg * G_loc + reg * I
+        rhs = ch * (sum_h wt v_loc (pred-1)) + cg * (G_lg @ x_full)
+              + reg * x_loc
+        x_loc <- x_loc - A^-1 rhs
+
+    One parameterization covers all three reference variants:
+    iALS++ (ialspp.h:85-145): ch=1, cg=uobs, wt=mask;
+    SAFER2++ user (safer2pp.h:97-159): ch=w/|H|, cg=w*uobs, wt=mask;
+    SAFER2++ item (safer2pp.h:161-216): ch=1, cg=uobs, wt=z/|H| per slot.
+    ``reg`` rides the solver's lazy diagonal shift, never a slab add.
+    """
+
+    cg: torch.Tensor                    # [N] coefficient of the frozen Gramian
+    reg: torch.Tensor                   # [N] ridge
+    ch: Optional[torch.Tensor] = None   # [N] history coefficient (None = 1)
+
+
+def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
+                       buckets: Sequence[Bucket], gram: torch.Tensor,
+                       spec_fn, *, bs: int, n_sweeps: int = 1,
+                       extra_vec: Optional[torch.Tensor] = None, eig=None,
+                       pre_list=None) -> torch.Tensor:
+    """Blockwise coordinate sweep(s) of one side against the FROZEN other
+    side, the ++ models' hot loop; returns a NEW table.
+
+    Bucket-outer, block-inner: each bucket gathers its [N, L, d] history
+    slab once and every block (of every sweep, for the fold-in's
+    ``n_sweeps``) slices it, with per-slot predictions maintained
+    incrementally: the slab-local form of the reference's flat prediction
+    cache (ialspp.h:399-406, safer2pp.h:504-508). The predictions are
+    recomputed from the live tables at each call, so no drift carries
+    over.
+
+    Ordering: the reference interleaves StepU(block)/StepV(block)
+    (ialspp.h:220-239, safer2pp.h:303-319); freezing the other side runs
+    all blocks of U, then all blocks of V: the same per-block systems
+    against the sweep-start other table (block-Jacobi across sides,
+    Gauss-Seidel within a side).
+
+    ``gram`` is the FULL Gramian of ``table_other`` (dual-weighted for
+    the SAFER2++ item sweep): each block's G_loc / G_lg is a slice of it.
+    ``spec_fn(bucket) -> BlockSpec`` supplies the per-row coefficients;
+    ``extra_vec`` routes a per-column weight (the item sweep's z/|H|)
+    through the slab gather. Three routes per bucket:
+
+      * wide (``assemble.is_wide``): one streamed pass builds the full
+        normal-equation pieces (``assemble.wide_gram_resid``) and every
+        block solves from slices of them;
+      * with ``eig = (Q, lam)`` of ``gram`` (``woodbury.maybe_eigh``), a
+        bucket with ``2 * width <= dim`` runs ONE full-dim block through
+        the full-dim Woodbury (``woodbury.solve_rhs``): the full-dim
+        delta solve is the direct normal-equation solve (rhs = A x - b,
+        so x - A^-1 rhs = A^-1 b), exact in one sweep, so further sweeps
+        against the same frozen side would change nothing;
+      * otherwise ``n_sweeps`` passes over the bs-blocks (the last block
+        is narrower when ``dim % bs != 0``). Without ``eig``, with
+        ``dim % bs == 0`` and ``bs >= 16``, a bucket with
+        ``2 * width <= bs`` solves each block through the block-level
+        Woodbury: one batched eigh of the Gramian's diagonal blocks,
+        shared by every row, and an L x L capacitance solve per row.
+
+    Every bs x bs (and L x L) system goes through ``solve.solve`` /
+    ``block_chol.spd_solve``, so through the inverse-Cholesky kernel: a
+    sweep launches it ``dim / bs`` times per bucket. ``emb[:, :, s:s+bs]``
+    is a strided view of the slab; ``torch.bmm`` may copy it.
+    """
+    table = table_self.clone()
+    if not buckets:
+        return table
+    if pre_list is not None and extra_vec is not None:
+        raise ValueError("pre-gathered slabs carry no extra_vec column")
+    dim = table.shape[1]
+    paths = woodbury.SOLVE_PATHS
+    q_full, lam_full = eig if eig is not None else (None, None)
+
+    wood = (q_full is None    # the full-dim Woodbury supersedes it
+            and dim % bs == 0 and bs >= 16
+            and any(not assemble.is_wide(b, dim) and 2 * b.width <= bs
+                    for b in buckets))
+    if wood:
+        nb = dim // bs
+        idx = torch.arange(nb, device=gram.device)
+        diag = gram.reshape(nb, bs, nb, bs)[idx, :, idx, :]   # [nb, bs, bs]
+        lam_all, q_all = torch.linalg.eigh(diag)
+        lam_all = lam_all.clamp(min=0.0)
+
+    def run_blocks(blk) -> None:
+        for _ in range(n_sweeps):
+            for s in range(0, dim, bs):
+                blk(s, min(s + bs, dim))
+
+    def do_narrow(tbl, b: Bucket, pre) -> torch.Tensor:
+        if pre is not None:
+            emb, mask, wt = pre[0], pre[1], None
+        elif extra_vec is None:
+            emb, mask = assemble.gather_history(table_other, b)
+            wt = None
+        else:
+            emb, mask, wt = assemble.gather_history_extra(table_other,
+                                                          extra_vec, b)
+        spec = spec_fn(b)
+        wt_eff = mask if wt is None else wt
+        if spec.ch is not None:
+            wt_eff = wt_eff * spec.ch[:, None]
+
+        if q_full is not None and woodbury.applicable(b.width, dim):
+            rhs = assemble.row_sums(emb, col_weight=mask if wt is None
+                                    else wt)
+            if spec.ch is not None:
+                rhs = rhs * spec.ch[:, None]
+            paths["woodbury"] += b.n_rows
+            return woodbury.solve_rhs(emb, wt_eff, spec.reg, spec.cg, rhs,
+                                      q_full, lam_full)
+
+        xf = assemble.read_rows(tbl, b).clone()
+        pred = assemble.rowwise_dot(emb, xf)
+        use_wood = wood and 2 * b.width <= bs
+        paths["block_woodbury" if use_wood else "block"] += b.n_rows
+
+        def blk(s: int, e: int) -> None:
+            nonlocal pred
+            emb_loc = emb[:, :, s:e]
+            x_loc = xf[:, s:e]
+            resid = pred - mask
+            rhs = assemble.row_sums(
+                emb_loc, col_weight=resid if wt is None else wt * resid)
+            if spec.ch is not None:
+                rhs = rhs * spec.ch[:, None]
+            rhs = (rhs + spec.cg[:, None] * (xf @ gram[s:e].T)
+                   + spec.reg[:, None] * x_loc)
+            if use_wood:
+                k_i = s // bs
+                delta = -woodbury.solve_rhs(emb_loc, wt_eff, spec.reg,
+                                            spec.cg, rhs, q_all[k_i],
+                                            lam_all[k_i])
+            else:
+                a = assemble.row_gramians(emb_loc, col_weight=wt)
+                if spec.ch is not None:
+                    a = a * spec.ch[:, None, None]
+                a = a + spec.cg[:, None, None] * gram[s:e, s:e][None]
+                delta = -solve.solve(a, rhs, ridge=spec.reg)
+            pred = pred + (emb_loc * delta[:, None, :]).sum(dim=2)
+            xf[:, s:e] = x_loc + delta
+
+        run_blocks(blk)
+        return xf
+
+    def do_wide(tbl, b: Bucket) -> torch.Tensor:
+        spec = spec_fn(b)
+        xf0 = assemble.read_rows(tbl, b).clone()
+        s_full, r0 = assemble.wide_gram_resid(table_other, b, xf0,
+                                              extra_vec=extra_vec)
+        xf = xf0.clone()
+        paths["block"] += b.n_rows
+        paths["wide"] += b.n_rows
+
+        def blk(s: int, e: int) -> None:
+            x_loc = xf[:, s:e]
+            # pred is linear in xf: hist term = r0_loc + (S (xf - xf0))_loc
+            rhs = r0[:, s:e] + torch.bmm(
+                s_full[:, s:e, :], (xf - xf0)[:, :, None])[:, :, 0]
+            a = s_full[:, s:e, s:e]
+            if spec.ch is not None:
+                a = a * spec.ch[:, None, None]
+                rhs = rhs * spec.ch[:, None]
+            a = a + spec.cg[:, None, None] * gram[s:e, s:e][None]
+            rhs = (rhs + spec.cg[:, None] * (xf @ gram[s:e].T)
+                   + spec.reg[:, None] * x_loc)
+            xf[:, s:e] = x_loc - solve.solve(a, rhs, ridge=spec.reg)
+
+        run_blocks(blk)
+        return xf
+
+    def do_bucket(tbl, b, pre):
+        x = (do_wide(tbl, b) if assemble.is_wide(b, dim)
+             else do_narrow(tbl, b, pre))
+        return assemble.scatter_bucket(tbl, b, x)
+
+    return sweep_apply(buckets, pre_list, table, do_bucket)
 
 
 # --------------------------------------------------------------------------
@@ -290,6 +534,16 @@ def gather_and_losses(table_other: torch.Tensor, buckets, probe_table,
         if keep:
             pre.append(None if emb is None else (emb, mask))
     return out, pre
+
+
+def ials_reg(length: torch.Tensor, num_choices: int, reg: float,
+             reg_exp: float, uobs: float) -> torch.Tensor:
+    """Frequency-scaled regularizer reg*(|H| + uobs*n)^exp
+    (reference ials.h:310-315)."""
+    base = length.to(torch.float32) + uobs * num_choices
+    if reg_exp == 1.0:
+        return reg * base
+    return reg * torch.pow(base, reg_exp)
 
 
 def normal_init(generator: torch.Generator, rows: int, dim: int,

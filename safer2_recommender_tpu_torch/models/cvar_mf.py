@@ -1,0 +1,113 @@
+"""CVaR-MF: the non-smooth CVaR baseline, projected subgradient descent
+(the counterpart of ``safer2_recommender_tpu/models/cvar_mf.py``).
+
+  z-step : hard indicator z_u = [loss_u - xi >= 0]   (cvar_mf.h:597-642)
+  U-step : gradient step u <- u - eta (A u - rhs)    (cvar_mf.h:88-134)
+  V-step : gradient step on items, using the *pre-U-step* user embeddings
+           (cvar_mf.h:282-295)
+  xi     : exact alpha-quantile of the loss vector   (cvar_mf.h:582-595)
+  eval   : closed-form fold-in with weight 1         (cvar_mf.h:182-229)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from safer2_recommender_tpu_torch.data.dataset import DeviceData, FoldInData
+from safer2_recommender_tpu_torch.models import common
+from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
+                                                      SaferFamilyMixin, _log)
+from safer2_recommender_tpu_torch.ops import assemble, quantile, woodbury
+
+
+class CVaRMF(SaferFamilyMixin, Recommender):
+    name = "cvar_mf"
+    _loss_lags_one_epoch = True
+
+    def _log_epoch_lines(self) -> None:
+        # reference cvar_mf.h:301-303, :327-328
+        self._log_weighted_loss()
+        _log.info("Mean weights: %s", self.get_mean_weight())
+        _log.info("Xi:%s", float(self.state.xi))
+
+    def _grad_step_u(self, ue, item_emb, gramian, buckets, dual,
+                     pre_list=None):
+        """Returns a NEW user table one gradient step from ``ue``."""
+        cfg = self.cfg
+        reg = self._user_reg()
+
+        def body(ue, b, pre):
+            w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
+            p = common.params_weighted_mean(
+                item_emb, b, torch.full((b.n_rows,), reg, device=ue.device),
+                cfg.uobs_weight, w, pre=pre)
+            u_rows = assemble.read_rows(ue, b)
+            grad = common.grad_from_params(p, gramian, u_rows)
+            return assemble.scatter_bucket(ue, b,
+                                           u_rows - cfg.stepsize * grad)
+
+        return common.sweep_apply(buckets, pre_list, ue.clone(), body)
+
+    def _grad_step_v(self, v, user_emb, dd: DeviceData, dual):
+        """Returns a NEW item table one gradient step from ``v``."""
+        cfg = self.cfg
+        w_gram = user_emb.T @ (user_emb * dual[:, None])
+        norm_dual = self._norm_dual(dd, dual)
+
+        def body(v, b, _):
+            reg = self._item_reg(dd.item_reg, b.row_ids)
+            p = common.params_weighted_item(user_emb, b, reg,
+                                            cfg.uobs_weight, norm_dual)
+            v_rows = assemble.read_rows(v, b)
+            grad = common.grad_from_params(p, w_gram, v_rows)
+            return assemble.scatter_bucket(v, b,
+                                           v_rows - cfg.stepsize * grad)
+
+        return common.sweep_apply(dd.by_item, None, v.clone(), body)
+
+    def _epoch(self, state: MFState, dd: DeviceData) -> MFState:
+        """Phase-shifted like ``SAFER2._epoch``: the reference's trailing
+        {loss, xi = exact quantile} (cvar_mf.h:300-306) runs at the top
+        of the next epoch, where the loss pass shares the U-step's
+        gather. Epoch 0 keeps the carried xi (the reference's prev_xi_
+        is 0-initialized and Initialize computes only the loss,
+        cvar_mf.h:710-726), so the update sequence is identical."""
+        cfg = self.cfg
+        present = dd.user_hist_size > 0
+        loss, pre = common.gather_and_losses(
+            state.item_emb, dd.by_user, state.user_emb,
+            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=True)
+        xi = state.xi if state.steps == 0 else quantile.exact_quantile(
+            loss, cfg.alpha)
+        dual = torch.where(present, (loss - xi >= 0.0).to(torch.float32),
+                           state.dual_weight)
+        u = self._grad_step_u(state.user_emb, state.item_emb,
+                              state.item_gramian, dd.by_user, dual,
+                              pre_list=pre)
+        del pre
+        # StepV uses the pre-update user embeddings (cvar_mf.h:282-295)
+        v = self._grad_step_v(state.item_emb, state.user_emb, dd, dual)
+        return state.replace(user_emb=u, item_emb=v, item_gramian=v.T @ v,
+                             user_loss=loss, dual_weight=dual, xi=xi,
+                             steps=state.steps + 1)
+
+    def initialize(self, dd: DeviceData) -> None:
+        """Pre-compute losses (reference cvar_mf.h:710-726)."""
+        self._init_losses(dd)
+
+    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+        """Closed-form fold-in with weight 1 (reference cvar_mf.h:644-692:
+        StepU_eval -> ProjectU_eval Cholesky solve)."""
+        cfg = self.cfg
+        ue = torch.zeros((fold.n_pad, cfg.dim), device=self.device)
+        reg = self._user_reg()
+        eig = woodbury.maybe_eigh(state.item_gramian, cfg.dim, use_cg=False)
+
+        def params_fn(b, pre=None):
+            return common.params_weighted_mean(
+                state.item_emb, b,
+                torch.full((b.n_rows,), reg, device=self.device),
+                cfg.uobs_weight, torch.ones((b.n_rows,), device=self.device))
+
+        return common.solve_sweep(ue, fold.by_user, params_fn,
+                                  state.item_gramian, eig=eig)

@@ -1,0 +1,147 @@
+"""iALS++: block coordinate descent over embedding sub-blocks (the
+counterpart of ``safer2_recommender_tpu/models/ialspp.py``).
+
+Delta solves over blocks of size ``block_size``:
+
+  A = uobs * G_loc + reg * I + sum_h v_loc v_loc^T
+  rhs = sum_h v_loc (pred - 1) + uobs * G_lg @ x + reg * x_loc
+  x_loc <- x_loc - A^-1 rhs                        (ialspp.h:85-145)
+
+Train epoch = full U block sweep, then full V block sweep: the frozen
+reordering of the reference's per-block U/V interleave
+(ialspp.h:208-261; ``models/common.py::block_sweep_frozen`` has the
+argument). The reference's flat prediction cache (ialspp.h:399-406,
+:469-517) becomes slab-local incremental predictions. Held-out
+evaluation = ``eval_fold_in_epochs`` (8) blockwise fold-in sweeps
+(ialspp.h:149-206) that share one slab gather.
+
+The reference-order trajectory (``Config.block_interleaved`` with
+``dim % block_size == 0``) is not ported yet (ROADMAP Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from safer2_recommender_tpu_torch.data.dataset import DeviceData, FoldInData
+from safer2_recommender_tpu_torch.models import common
+from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
+                                                      _log)
+from safer2_recommender_tpu_torch.models.ials import ials_reg_vectors
+from safer2_recommender_tpu_torch.ops import woodbury
+
+INTERLEAVED_NOT_PORTED = (
+    "block_interleaved=True with dim % block_size == 0: the "
+    "reference-order blockwise sweep is not ported to PyTorch yet "
+    "(ROADMAP Queue 1 item 12)")
+
+
+def check_interleaved(cfg) -> None:
+    """Refuse the reference-order mode where it would engage."""
+    if cfg.block_interleaved and cfg.dim % cfg.block_size == 0:
+        raise NotImplementedError(INTERLEAVED_NOT_PORTED)
+
+
+def _warn_interleaved_fallback(model) -> None:
+    """One-time runtime notice when block_interleaved cannot engage
+    (dim % block_size != 0): the user asked for the reference-order
+    fidelity trajectory but is getting the fast frozen sweep."""
+    if model.cfg.block_interleaved and (
+            model.cfg.dim % model.cfg.block_size) and not getattr(
+            model, "_interleaved_fallback_warned", False):
+        model._interleaved_fallback_warned = True
+        _log.warning(
+            "block_interleaved requested but dim %d is not a multiple of "
+            "block_size %d — falling back to the frozen (fast) sweep; "
+            "the reference-order fidelity trajectory needs "
+            "dim %% block_size == 0",
+            model.cfg.dim, model.cfg.block_size)
+
+
+def fold_in_eig(model, state: MFState):
+    """(Q, lam) for the ++ models' fold-in, or None. The fold-in follows
+    the training mode: blockwise sweeps under ``block_interleaved``,
+    collapsed to one exact solve (the full-dim Woodbury) by default."""
+    cfg = model.cfg
+    if cfg.block_interleaved:
+        return None
+    return woodbury.maybe_eigh(state.item_gramian, cfg.dim, use_cg=False,
+                               q_prev=state.eig_qu,
+                               refresh_tol=cfg.eig_refresh_tol)
+
+
+class IALSpp(Recommender):
+    name = "ialspp"
+    _stats_order = "post"
+
+    def __init__(self, cfg, num_users, num_items, **kw):
+        check_interleaved(cfg)
+        super().__init__(cfg, num_users, num_items, **kw)
+
+    @property
+    def _loss_lags_one_epoch(self) -> bool:
+        # In interleaved mode the stored loss would be computed at the
+        # end of the epoch from the carried predictions and not lag.
+        return not (self.cfg.block_interleaved
+                    and self.cfg.dim % self.cfg.block_size == 0)
+
+    def _reg_vectors(self, dd: DeviceData):
+        return ials_reg_vectors(self.cfg, dd)
+
+    def _spec_fn(self, num_choices: int):
+        """Freq-scaled regularizer, unweighted history term
+        (reference ialspp.h:85-145 + RegularizationValue)."""
+        cfg = self.cfg
+
+        def spec_fn(b):
+            reg = common.ials_reg(b.length, num_choices, cfg.l2_reg,
+                                  cfg.l2_reg_exp, cfg.uobs_weight)
+            return common.BlockSpec(
+                cg=torch.full((b.n_rows,), cfg.uobs_weight,
+                              device=self.device),
+                reg=reg)
+        return spec_fn
+
+    def _epoch(self, state: MFState, dd: DeviceData) -> MFState:
+        cfg = self.cfg
+        _warn_interleaved_fallback(self)
+        # The reference's end-of-epoch ComputeUserLoss (stats-only) runs
+        # at the top of the next epoch, where it shares the user sweep's
+        # slab gathers (as in IALS._epoch); the stored user_loss
+        # describes the carried (pre-epoch) model.
+        loss, pre = common.gather_and_losses(
+            state.item_emb, dd.by_user, state.user_emb,
+            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=False)
+        # (Q, lam) of each sweep's frozen Gramian upgrades Woodbury-
+        # eligible buckets to one full-dim block; warm-started from the
+        # previous epoch's basis.
+        eig_u = woodbury.maybe_eigh(state.item_gramian, cfg.dim,
+                                    use_cg=False, q_prev=state.eig_qu,
+                                    refresh_tol=cfg.eig_refresh_tol)
+        u = common.block_sweep_frozen(
+            state.user_emb, state.item_emb, dd.by_user,
+            state.item_gramian, self._spec_fn(dd.num_items),
+            bs=cfg.block_size, eig=eig_u, pre_list=pre)
+        del pre
+        gram_u = u.T @ u
+        eig_v = woodbury.maybe_eigh(gram_u, cfg.dim, use_cg=False,
+                                    q_prev=state.eig_qv,
+                                    refresh_tol=cfg.eig_refresh_tol)
+        v = common.block_sweep_frozen(
+            state.item_emb, u, dd.by_item, gram_u,
+            self._spec_fn(dd.num_users), bs=cfg.block_size, eig=eig_v)
+        return state.replace(user_emb=u, item_emb=v, item_gramian=v.T @ v,
+                             user_loss=loss, steps=state.steps + 1,
+                             eig_qu=eig_u[0] if eig_u else state.eig_qu,
+                             eig_qv=eig_v[0] if eig_v else state.eig_qv)
+
+    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+        """``eval_fold_in_epochs`` blockwise fold-in sweeps (reference
+        ialspp.h:149-206); the item table is frozen throughout, so one
+        slab gather per bucket serves every block solve of every sweep."""
+        ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
+        return common.block_sweep_frozen(
+            ue, state.item_emb, fold.by_user, state.item_gramian,
+            self._spec_fn(self.num_items), bs=self.cfg.block_size,
+            n_sweeps=self.cfg.eval_fold_in_epochs,
+            eig=fold_in_eig(self, state))

@@ -91,9 +91,4 @@ class SAFER2(SaferFamilyMixin, Recommender):
         """Reference safer2.h:819-838. The loss/xi warm start runs at the
         top of the first epoch (see ``_epoch``); here only the loss is
         computed, so the pre-training state is inspectable."""
-        self._note_perms(dd)
-        s = self.state
-        loss = common.user_losses(s.user_emb, s.item_emb, s.item_gramian,
-                                  dd.by_user, dd.num_users,
-                                  self.cfg.uobs_weight, halve=True)
-        self.state = s.replace(user_loss=loss, steps=0)
+        self._init_losses(dd, steps=0)

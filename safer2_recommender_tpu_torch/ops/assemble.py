@@ -10,7 +10,8 @@ Pad rows carry the out-of-bounds id ``num_rows``: JAX drops writes to
 it and clamps reads of it, torch raises, so every read or write here
 masks or clamps pad rows first. Buckets whose gathered slab would not
 fit in memory ("wide", zipf-head histories) stream through column
-chunks (``wide_assemble``, ``wide_obs``) and are never gathered whole.
+chunks (``wide_assemble``, ``wide_matvec``, ``wide_gram_resid``,
+``wide_obs``); the models never gather them whole.
 """
 
 from __future__ import annotations
@@ -24,12 +25,6 @@ from safer2_recommender_tpu_torch.data.dataset import Bucket
 WIDE_SLAB_BYTES = 768 << 20
 WIDE_CHUNK = 4096
 
-WIDE_NOT_PORTED = (
-    "a bucket's gathered history slab exceeds WIDE_SLAB_BYTES: it streams "
-    "through wide_assemble / wide_obs only; the streamed forms of the "
-    "CVaR-MF and ++ models (wide_matvec, wide_gram_resid) are not ported "
-    "to PyTorch yet (ROADMAP Queue 1 item 13, with items 10 and 11)")
-
 
 def is_wide(bucket: Bucket, dim: int) -> bool:
     """Stream this bucket through column chunks? Only when the *width*
@@ -37,13 +32,6 @@ def is_wide(bucket: Bucket, dim: int) -> bool:
     slabs are bounded by build-time chunking)."""
     return bucket.width > dim and (
         bucket.n_rows * bucket.width * (dim + 1) * 4 > WIDE_SLAB_BYTES)
-
-
-def _require_narrow(bucket: Bucket, dim: int) -> None:
-    """A whole-bucket gather of a wide bucket would materialize the slab
-    that streaming exists to avoid."""
-    if is_wide(bucket, dim):
-        raise NotImplementedError(WIDE_NOT_PORTED)
 
 
 def history_mask(bucket: Bucket) -> torch.Tensor:
@@ -56,7 +44,6 @@ def gather_history(table: torch.Tensor,
                    bucket: Bucket) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather the other-side embedding rows for each history slot.
     Returns (emb [N, L, d] already masked, mask [N, L])."""
-    _require_narrow(bucket, table.shape[1])
     mask = history_mask(bucket)
     emb = table[bucket.col_ids] * mask[..., None].to(table.dtype)
     return emb, mask
@@ -68,7 +55,6 @@ def gather_history_extra(table: torch.Tensor, vec: torch.Tensor,
     """Row gather of the embedding rows and a per-row scalar: returns
     (emb [N, L, d] masked, mask [N, L], extra [N, L] f32 masked) with
     ``extra[n, l] = vec[col_ids[n, l]]``."""
-    _require_narrow(bucket, table.shape[1])
     mask = history_mask(bucket)
     emb = table[bucket.col_ids] * mask[..., None].to(table.dtype)
     extra = vec[bucket.col_ids].to(torch.float32) * mask
@@ -145,6 +131,49 @@ def wide_assemble(table: torch.Tensor, bucket: Bucket,
         a += row_gramians(emb, col_weight=wt)
         rhs += row_sums(emb, col_weight=wt)
     return a, rhs
+
+
+def wide_matvec(table: torch.Tensor, bucket: Bucket, x: torch.Tensor,
+                extra_vec: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed ``(sum_h wt v (v.x), sum_h wt v)`` (the history terms of
+    A @ x and rhs) for the gradient models."""
+    n, d = bucket.n_rows, table.shape[1]
+    ax = torch.zeros((n, d), dtype=torch.float32, device=table.device)
+    rhs = torch.zeros((n, d), dtype=torch.float32, device=table.device)
+    for emb, mask, wt in _wide_chunks(table, extra_vec, bucket):
+        wt = mask if wt is None else wt
+        p = rowwise_dot(emb, x)
+        ax += row_sums(emb, col_weight=wt * p)
+        rhs += row_sums(emb, col_weight=wt)
+    return ax, rhs
+
+
+def wide_gram_resid(table: torch.Tensor, bucket: Bucket,
+                    x_full: torch.Tensor,
+                    extra_vec: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed FULL normal-equation pieces for the blockwise models'
+    zipf-head rows:
+
+        S  = sum_h wt v v^T            [N, d, d]
+        r0 = sum_h wt v (pred0 - 1)    [N, d],  pred0 = <v, x_full>
+
+    with ``wt = mask`` (or ``extra[col] * mask``). Wide rows are few, so
+    [N, d, d] fits while their [N, L, d] slab does not; every block
+    system of the sweep is then a slice of (S, r0): pred is linear in x
+    with the other side frozen, so ``sum_h wt v_loc (pred - 1) = r0_loc +
+    (S @ (x - x0))_loc``. One streamed pass serves all d/bs block solves
+    (``models/common.py::block_sweep_frozen`` consumes this)."""
+    n, d = bucket.n_rows, table.shape[1]
+    s_acc = torch.zeros((n, d, d), dtype=torch.float32, device=table.device)
+    r0 = torch.zeros((n, d), dtype=torch.float32, device=table.device)
+    for emb, mask, wt in _wide_chunks(table, extra_vec, bucket):
+        wt = mask if wt is None else wt
+        p = rowwise_dot(emb, x_full)
+        s_acc += row_gramians(emb, col_weight=wt)
+        r0 += row_sums(emb, col_weight=wt * (p - mask))
+    return s_acc, r0
 
 
 def wide_obs(table: torch.Tensor, bucket: Bucket,

@@ -7,6 +7,8 @@
                      32 halvings)                reference safer2.h:692-712
   compute_xi         the NR loop, optionally sub-sampled
                                                  reference safer2.h:716-742
+  exact_quantile     CVaR-MF's exact alpha-quantile
+                                                 reference cvar_mf.h:582-595
 
 The Armijo test uses the gradient at the TRIAL point, as the reference
 does (safer2.h:704). The loops run on the host: each Armijo test reads
@@ -88,3 +90,22 @@ def compute_xi(losses: torch.Tensor, prev_xi, generator: Optional[
             sample = losses
         xi = xi + xi_direction(xi, sample, **kw)
     return xi
+
+
+# Crossover between a top-k selection and a full sort for exact_quantile
+# (the JAX package's switch, kept so both select the same element the
+# same way).
+_TOPK_MAX_K = 1024
+
+
+def exact_quantile(losses: torch.Tensor, alpha: float) -> torch.Tensor:
+    """CVaR-MF's exact xi: the floor(n*alpha)-th largest loss (reference
+    cvar_mf.h:582-595: nth_element over negated losses at position
+    Q = n*alpha; returns -vals[Q]). Returns a 0-d tensor."""
+    n = losses.shape[0]
+    # alpha == 1.0 would index one past the end (the reference reads out
+    # of bounds there); clamp to the smallest loss
+    q = min(int(n * alpha), n - 1)
+    if q + 1 > _TOPK_MAX_K:
+        return torch.sort(losses).values[n - 1 - q]
+    return torch.topk(losses, q + 1).values[q]

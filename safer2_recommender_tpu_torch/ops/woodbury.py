@@ -21,10 +21,13 @@ kernel). Every product here runs in full float32: PyTorch keeps TF32 off
 for float32 matmuls unless a caller turns it on.
 
 ``SOLVE_PATHS`` counts, per path, the padded bucket rows each sweep
-solved (``woodbury``, ``rotated``, ``direct``; ``wide`` counts the rows
-among the direct ones whose histories streamed through column chunks)
-and the eigenbasis refreshes (``refresh_warm``, ``refresh_cold``). It
-only counts; nothing reads it to decide anything.
+solved (``woodbury``, ``rotated``, ``direct``; ``block`` and
+``block_woodbury`` are the blockwise sweeps' rows, solved block by block
+directly or through the block-level Woodbury; ``wide`` counts the rows,
+among the direct, block and gradient-step ones, whose histories
+streamed through column chunks) and the eigenbasis refreshes
+(``refresh_warm``, ``refresh_cold``). It only counts; nothing reads it
+to decide anything.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ from safer2_recommender_tpu_torch.ops import block_chol
 MIN_DIM = 128
 
 SOLVE_PATHS: Dict[str, int] = dict.fromkeys(
-    ("woodbury", "rotated", "direct", "wide", "refresh_warm",
-     "refresh_cold"), 0)
+    ("woodbury", "rotated", "direct", "block", "block_woodbury", "wide",
+     "refresh_warm", "refresh_cold"), 0)
 
 
 def reset_solve_paths() -> None:
@@ -180,3 +183,16 @@ def solve(p: SolveParams, q: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     rv = torch.bmm(p.r[:, None, :], w)[:, 0, :]               # Q^T Vh^T r
     del w
     return _finish(s * rv, s, rs, ws, k, q)
+
+
+def solve_rhs(emb: torch.Tensor, wt: torch.Tensor, c0: torch.Tensor,
+              c1: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
+              lam: torch.Tensor) -> torch.Tensor:
+    """Batched Woodbury solve of A x = b for an ARBITRARY rhs b [N, d]
+    (the blockwise models' delta systems, whose rhs mixes residual,
+    local-global-Gramian and regularizer pull-back terms; see
+    ``models/common.py::block_sweep_frozen``). Same A as ``solve``:
+    A = c0 I + c1 G + emb^T diag(wt) emb with G = Q diag(lam) Q^T."""
+    w, s, rs, ws, k = _prep(emb, wt, c0, c1, q, lam)
+    del w
+    return _finish(s * (b @ q), s, rs, ws, k, q)

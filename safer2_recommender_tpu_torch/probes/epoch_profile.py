@@ -1,18 +1,19 @@
-"""Where a dim-512 SAFER2 epoch spends its time on the GPU.
+"""Where a dim-512 epoch spends its time on the GPU.
 
     python -m safer2_recommender_tpu_torch.probes.epoch_profile
 
-For each of two workloads, ML-1M (the bundled ``tests/ml-1m`` split at
-the README config) and the 50k x 40k power-law set at the MSD config of
-``bench.py`` (``synth50k``), both at dim 512, seeded:
+For each (workload, model) pair of ``RUNS``: SAFER2 on ML-1M (the
+bundled ``tests/ml-1m`` split at the README config) and on the 50k x 40k
+power-law set at the MSD config of ``bench.py`` (``synth50k``), then
+SAFER2++ (block 64) on the latter; all at dim 512, seeded:
 
 1. two warm-up epochs;
-2. the phases of one epoch, each timed from a synchronize to a
-   synchronize on the host clock, three times from the same state
+2. for SAFER2, the phases of one epoch, each timed from a synchronize to
+   a synchronize on the host clock, three times from the same state
    (the state is not advanced), with the median printed: the loss pass,
    the xi line search, the z-step, the U sweep's eigenbasis alone, the
    U sweep with its eigenbasis, the V sweep with its eigenbasis, the
-   Gramian;
+   Gramian (the other models' epochs are not cut into phases);
 3. ``torch.profiler`` over two more epochs: their wall time, the device
    busy time (the union of the device activity intervals, so
    overlapping streams are not counted twice) and its share of the
@@ -41,6 +42,9 @@ from safer2_recommender_tpu_torch.models import common, get_model
 from safer2_recommender_tpu_torch.ops import smoothing, woodbury
 
 DIM = 512
+# (workload, model) pairs profiled, in order; no flags: edit this list
+RUNS = (("ml1m", "safer2"), ("synth50k", "safer2"),
+        ("synth50k", "safer2pp"))
 ML1M_TRAIN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "tests", "ml-1m", "train.csv")
@@ -156,21 +160,25 @@ def profile_epochs(model, dd: DeviceData):
 
 
 def run() -> Dict[str, dict]:
-    """Measure and print both workloads on the current CUDA device;
-    returns the numbers by workload name."""
+    """Measure and print every pair of ``RUNS`` on the current CUDA
+    device; returns the numbers by ``"<workload>"`` (SAFER2) or
+    ``"<workload>-<model>"``."""
     device = torch.device("cuda", torch.cuda.current_device())
     out = {}
-    for name in ("ml1m", "synth50k"):
-        ds, dd, cfg = workload(name, device)
-        model = get_model("safer2", cfg, ds.num_users, ds.num_items,
+    for wl, model_name in RUNS:
+        name = wl if model_name == "safer2" else f"{wl}-{model_name}"
+        ds, dd, cfg = workload(wl, device)
+        model = get_model(model_name, cfg, ds.num_users, ds.num_items,
                           device=device)
         model.initialize(dd)
         model.train_epochs(dd, 2)
-        runs = [phase_ms(model, dd) for _ in range(3)]
-        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-        print(f"[profile {name}] phase ms, median of 3 from one state: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in med.items()),
-              flush=True)
+        med = {}
+        if model_name == "safer2":
+            runs = [phase_ms(model, dd) for _ in range(3)]
+            med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+            print(f"[profile {name}] phase ms, median of 3 from one state: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in med.items()),
+                  flush=True)
         wall, busy, ranked, chol = profile_epochs(model, dd)
         print(f"[profile {name}] 2 profiled epochs: wall {wall:.1f} ms, "
               f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "

@@ -16,15 +16,18 @@ ML1M_DIR = os.environ.get(
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run(args, timeout=300):
+def _run(args, timeout=300, model="safer2"):
     cmd = [sys.executable, "-m", "safer2_recommender_tpu_torch.cli",
-           "--model_name", "safer2",
+           "--model_name", model,
            "--train_data", os.path.join(ML1M_DIR, "train.csv"),
            "--test_train_data", os.path.join(ML1M_DIR, "validation_tr.csv"),
            "--test_test_data", os.path.join(ML1M_DIR, "validation_te.csv"),
            ] + args
+    # one intra-op thread: the shapes are small, and the suite's worker
+    # processes run side by side
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     return subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
-                          timeout=timeout)
+                          timeout=timeout, env=env)
 
 
 def test_cli_two_epochs_on_ml1m_prints_the_jax_line_formats():
@@ -86,11 +89,66 @@ def test_cli_refuses_unported_flags(flags, item, capsys):
     assert "not ported to PyTorch yet" in err and item in err
 
 
-@pytest.mark.parametrize("name,message", [
-    ("ials", "ported: safer2"), ("nope", "invalid choice")])
-def test_cli_refuses_unported_models_and_unknown_ones(name, message, capsys):
-    err = _refused(["--model_name", name, "--device", "cpu"], capsys)
+@pytest.mark.parametrize("name,flags,message", [
+    # all six names are accepted; what a ++ model cannot do yet is
+    # refused with its item, an unknown name by the parser
+    ("ialspp", ["--block_interleaved", "1", "--block_size", "4"], "item 12"),
+    ("safer2pp", ["--block_interleaved", "1", "--block_size", "4"],
+     "item 12"),
+    ("ials", ["--use_cg", "1"], "item 14"),
+    ("nope", [], "invalid choice")])
+def test_cli_refuses_unported_models_and_unknown_ones(name, flags, message,
+                                                      capsys):
+    err = _refused(["--model_name", name, "--device", "cpu"] + flags, capsys)
     assert message in err
+    from safer2_recommender_tpu_torch import MODEL_REGISTRY, cli
+    assert sorted(cli.MODEL_CHOICES) == sorted(MODEL_REGISTRY)
+
+
+_PREFIX = r"^I\d{4} \d\d:\d\d:\d\d safer2_recommender_tpu_torch\] "
+_LOSS_LINE = (r"Loss=[\d.]+ Loss_observed=[\d.]+ Loss_unobserved=[\d.]+ "
+              r"Loss_reg=[\d.]+ Loss_reg \(user\)=[\d.]+ "
+              r"Loss_reg \(item\)=[\d.]+$")
+_NUM = r"[\d.e-]+"
+
+
+@pytest.mark.parametrize("model,args,lines,absent", [
+    ("ials", ["--uobs_weight", "0.1", "--l2_reg", "0.003"],
+     [], ["Weighted Loss", "Xi:"]),
+    ("ialspp", ["--uobs_weight", "0.1", "--l2_reg", "0.003",
+                "--block_size", "4"], [], ["Weighted Loss", "Xi:"]),
+    ("erm_mf", ["--uobs_weight", "0.004", "--l2_reg", "0.005"],
+     [rf"Weighted Loss: {_NUM}$"], ["Xi:", "Mean weights"]),
+    ("cvar_mf", ["--uobs_weight", "0.008", "--l2_reg", "0.002",
+                 "--stepsize", "0.4"],
+     [rf"Weighted Loss: {_NUM}$", rf"Mean weights: {_NUM}$", rf"Xi:{_NUM}$"],
+     []),
+    ("safer2pp", ["--uobs_weight", "0.004", "--l2_reg", "0.004",
+                  "--bandwidth", "0.15", "--block_size", "4"],
+     [rf"Weighted Loss: {_NUM}$", rf"Xi:{_NUM}$"], ["Mean weights"]),
+])
+def test_cli_two_epochs_of_each_new_model_print_the_jax_line_formats(
+        model, args, lines, absent):
+    res = _run(["--dim", "8", "--alpha", "0.3", "--epoch", "2",
+                "--print_var_stats", "1", "--device", "cpu"] + args,
+               model=model)
+    assert res.returncode == 0, res.stderr[-3000:]
+    err = res.stderr
+    for pattern in [_LOSS_LINE, r"Time=\d+$",
+                    rf"VaR: {_NUM} CVaR: {_NUM}$",
+                    r"Min: \d\.\d{3}, Mean: \d\.\d{3}, Max: \d\.\d{3}$",
+                    r"note: loss-derived stats lag one epoch",
+                    r"Epoch: 0, Timer: Train=\d+$",
+                    r"Epoch: 1, Timer: Train=\d+$", r"Validation Results$",
+                    r"Epoch 2:$",
+                    r"Mean NDCG@5=\d\.\d{4} .* Mean NDCG@100=\d\.\d{4}$",
+                    ] + lines:
+        assert len(re.findall(_PREFIX + pattern, err, re.M)) >= 1, pattern
+    for word in absent:
+        assert word not in err, word
+    # the loss decomposition is printed once per epoch
+    assert len(re.findall(_PREFIX + _LOSS_LINE, err, re.M)) == 2
+    assert float(re.search(r"Mean NDCG@20=(\d\.\d{4})", err).group(1)) > 0.0
 
 
 def test_cli_fails_without_cuda_instead_of_using_the_cpu(capsys):

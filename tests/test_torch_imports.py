@@ -30,10 +30,11 @@ def test_port_imports_no_jax():
                          text=True, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     count, bad, names = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 20        # every module was reached
+    assert int(count) >= 25        # every module was reached
     assert bad == "[]", bad
     for mod in ("ops.woodbury", "ops.bdot", "data.synth", "probes.bdot",
-                "probes.epoch_profile"):
+                "probes.epoch_profile", "models.ials", "models.ialspp",
+                "models.erm_mf", "models.cvar_mf", "models.safer2pp"):
         assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
 
 
@@ -103,7 +104,9 @@ def test_port_reads_no_file_of_the_jax_package():
                 py.append(full)
             elif os.path.basename(root) == "csrc":
                 native.append(full)
-    assert len(py) >= 20 and len(native) >= 3
+    assert len(py) >= 25 and len(native) >= 3
+    for mod in ("ials", "ialspp", "erm_mf", "cvar_mf", "safer2pp"):
+        assert os.path.join(pkg, "models", mod + ".py") in py, mod
     bad = {p: _python_references(p) for p in py}
     bad.update({p: _native_references(p) for p in native})
     bad = {os.path.relpath(p, REPO): b for p, b in bad.items() if b}

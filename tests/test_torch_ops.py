@@ -97,7 +97,7 @@ def test_read_and_scatter_rows_match_jax(both):
                                                jnp.asarray(vals[:, 0])))
 
 
-def test_is_wide_matches_jax_and_wide_buckets_raise(both):
+def test_is_wide_matches_jax_and_wide_buckets_raise(both, monkeypatch):
     tdd, jdd, items, _ = both
     for tb, jb, _ in _bucket_pairs(tdd, jdd):
         for dim in (2, 8, 64):
@@ -107,8 +107,20 @@ def test_is_wide_matches_jax_and_wide_buckets_raise(both):
                      col_ids=torch.zeros((64, 1 << 20), dtype=torch.long),
                      length=torch.ones(64, dtype=torch.long))
     assert tasm.is_wide(big, 8) and not tasm.is_wide(b, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tasm.gather_history(_t(items), big)
+    # every model streams its wide buckets now (wide_assemble, wide_obs,
+    # wide_matvec, wide_gram_resid), so nothing guards a whole-bucket
+    # gather any more: as in the JAX package, it returns the slab
+    assert not hasattr(tasm, "WIDE_NOT_PORTED")
+    assert not hasattr(tasm, "_require_narrow")
+    for mod in (tasm, jasm):
+        monkeypatch.setattr(mod, "WIDE_SLAB_BYTES", 1)
+    tb, jb = next((t, j) for t, j in zip(tdd.by_user, jdd.by_user)
+                  if t.width > 2)
+    assert tasm.is_wide(tb, 2) and jasm.is_wide(jb, 2)
+    emb, mask = tasm.gather_history(_t(items[:, :2].copy()), tb)
+    jemb, jmask = jasm.gather_history(jnp.asarray(items[:, :2]), jb)
+    _close(emb, jemb)
+    _close(mask, jmask)
 
 
 @pytest.mark.parametrize("fn", ["gaussian_kernel", "gaussian_cdf",

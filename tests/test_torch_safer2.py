@@ -310,9 +310,20 @@ def test_unported_paths_raise(small):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         get_model("safer2", Config(compute_dtype="bf16"), ds.num_users,
                   ds.num_items, device="cpu")
-    with pytest.raises(ValueError, match="ported: \\['safer2'\\]"):
-        get_model("ials", Config(), ds.num_users, ds.num_items,
+    # the other five models are ported: the factory builds each
+    for name in ("ials", "ialspp", "erm_mf", "cvar_mf", "safer2pp"):
+        built = get_model(name, Config(dim=8, block_size=4), ds.num_users,
+                          ds.num_items, device="cpu")
+        assert built.name == name
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("nope", Config(), ds.num_users, ds.num_items,
                   device="cpu")
+    # the reference-order ++ sweep is not: refused where it would engage
+    for name in ("ialspp", "safer2pp"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            get_model(name, Config(dim=8, block_size=4,
+                                   block_interleaved=True), ds.num_users,
+                      ds.num_items, device="cpu")
     m = get_model("safer2", Config(), ds.num_users, ds.num_items,
                   device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):

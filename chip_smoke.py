@@ -58,18 +58,41 @@ Phases, each printing lines to stdout tagged with its name:
      epoch ms, the rows by solve path, the kernel launches by r and how
      many sit under one wave, the peak device memory; finite tables,
      wide rows, and r = 64 launches for both ++ models;
- 13. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
+ 13. server: the PyTorch path after training: each of the six ML-1M
+     dim-32 models of phases 6 and 11, whose CLI runs saved a checkpoint
+     (--checkpoint_dir, a temporary directory), is restored into a fresh
+     model (CheckpointManager.restore_with_meta + load_checkpoint_meta, no
+     DeviceData built) and served by a Server(k=10), one CUDA graph per
+     rung pair, over 8 request batches of 1-1000 held-out users (sizes
+     from a fixed seed): ids equal to the trained model's recommend() on
+     each batch, no history item, the graph's ids bit-identical to the
+     same program run eagerly, no new graph after the first pass,
+     recommend_stream equal to the loop, chol_inverse launches of the
+     first pass equal to the warm-ups plus the replays times the launches
+     each capture recorded; users/s of the second pass, p50 ms at batch 64
+     from the graph and from recommend(), chol_inverse launches per
+     capture, the overlap of approx=True with the exact top-10;
+ 14. server50k: the same checks and readings at full width, the
+     synth50k SAFER2 model and the synth50k-models SAFER2++ model (dim
+     512) serving the 256 longest histories (past the 512-wide rung) and
+     1,024 random users, plus the replays and the graph pool's size, and
+     SAFER2++'s recommend() time on the 256 users;
+ 15. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
      own path: at [4096, h, h] and 8 dots, each precision per call and
      from a CUDA graph beside its bound, its plain version and
      torch.linalg.matrix_power (f32, or TF32 for "default"); then plain
      torch.matmul at the dim-512 solver's products;
      then the launches of the inverse-Cholesky kernel on the dim512,
      synth50k and synth50k-models paths by r and N against one wave of
-     the card, and the
-     kernel against its plain version at the largest and the most
-     frequent shape of each path, compared and timed as in phase 3.
+     the card, and the kernel against its plain version at the largest
+     and the most frequent shape of each path (the served paths of
+     phases 13 and 14 included), compared and timed as in phase 3, and
+     compared at every other shape the served paths gave it.
 Every path's kernel launch counts are set to 0 just before it and read
-just after. Then a JSON line describing the kernels (launch counts on
+just after; on a served path a capture counts no launch and each replay
+counts the launches its capture recorded (serving.py), and each
+program's capture launches are reported beside its replays. Then a JSON
+line describing the kernels (launch counts on
 their paths, errors, times) and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits nonzero and never prints
 the last line. Without CUDA, or without the package beside it, it
@@ -83,6 +106,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -123,6 +147,9 @@ MODEL_RUNS = {
                  "--seed", "2"], 50),
 }
 SYNTH_MODELS = ("safer2pp", "ialspp", "ials", "erm_mf", "cvar_mf")
+SERVE_SEED = 6
+SERVE_BATCHES = 8
+P50_REPEATS = 11
 
 
 def say(phase: str, msg: str) -> None:
@@ -161,11 +188,10 @@ def phase_kernel(chol_probe, device):
     return by_r
 
 
-def time_at(chol_probe, device, shape):
+def check_at(chol_probe, device, shape):
     """The kernel against its plain version at one [N, r, r] shape of
-    the main path (relative error of each system within REL_TOL, exact
-    zeros above the diagonal), then timed in turns beside its bound, the
-    plain version and the library pair."""
+    the main path: relative error of each system within REL_TOL, exact
+    zeros above the diagonal. Returns (a, ridge, errors)."""
     import torch
 
     from safer2_recommender_tpu_torch.ops import block_chol
@@ -181,6 +207,13 @@ def time_at(chol_probe, device, shape):
     check(e["upper_zero"], f"{list(shape)}: nonzero above the diagonal")
     check(e["max_rel_err"] <= REL_TOL,
           f"{list(shape)}: rel err {e['max_rel_err']} > {REL_TOL}")
+    return a, ridge, e
+
+
+def time_at(chol_probe, device, shape):
+    """``check_at``, then the kernel timed in turns beside its bound, the
+    plain version and the library pair."""
+    a, ridge, e = check_at(chol_probe, device, shape)
     row = chol_probe.measure(a, ridge)
     row.update(max_abs_err=e["max_abs_err"], max_rel_err=e["max_rel_err"])
     return row
@@ -241,13 +274,15 @@ def phase_solve(block_chol, chol_probe, device):
         + ", ".join(f"{d}: {w:.3f}" for d, w in worst.items()))
 
 
-def train(cli, dim: int, epochs: int, args=README_ARGS):
+def train(cli, dim: int, epochs: int, args=README_ARGS, ckpt=None):
     base = [os.path.join(ML1M, f) for f in
             ("train.csv", "validation_tr.csv", "validation_te.csv")]
     argv = list(args) + [
         "--train_data", base[0], "--test_train_data", base[1],
         "--test_test_data", base[2], "--dim", str(dim),
         "--epoch", str(epochs), "--device", "cuda"]
+    if ckpt is not None:
+        argv += ["--checkpoint_dir", ckpt]
     return cli.run(argv)
 
 
@@ -479,17 +514,20 @@ def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
         f"{weights}; solve paths (padded rows; refreshes) {paths}; kernel "
         f"launches by r {launches}; peak device memory {peak} B")
     return dict(epoch_ms=epoch_ms, paths=paths, launches=launches,
-                peak_bytes=peak, shapes=shapes)
+                peak_bytes=peak, shapes=shapes, model=model)
 
 
-def phase_models(cli, block_chol):
+def phase_models(cli, block_chol, ckpt_root):
     """The other five models through the CLI on ML-1M at dim 32 (block 8
-    for the ++ models), at the reference tests' configs: the quality
-    gates, finite tables on the card, and the kernel launches by r."""
-    out = {}
+    for the ++ models), at the reference tests' configs, each saving its
+    checkpoint under ``ckpt_root/<name>``: the quality gates, finite
+    tables on the card, and the kernel launches by r. Returns the
+    readings and each run's trained model."""
+    out, trained = {}, {}
     for name, (args, epochs) in MODEL_RUNS.items():
         block_chol.reset_launches()
-        res = train(cli, 32, epochs, ["--model_name", name] + args)
+        res = train(cli, 32, epochs, ["--model_name", name] + args,
+                    ckpt=os.path.join(ckpt_root, name))
         launches = dict(block_chol.LAUNCHES)
         state = res.model.state
         check(res.model.name == name, f"{name}: got a {res.model.name}")
@@ -512,7 +550,8 @@ def phase_models(cli, block_chol):
         out[name] = dict(ndcg20=ndcg20, epoch_ms=res.epoch_ms,
                          launches=launches,
                          mean_weights=res.mean_weights[-3:])
-    return out
+        trained[name] = res.model
+    return out, trained
 
 
 def longest_histories(ds, n: int):
@@ -610,8 +649,266 @@ def phase_synth_models(block_chol, woodbury, device, workload, wave):
                          total_launches=sum(launches.values()),
                          launch_histogram=by_r, peak_bytes=peak,
                          shapes=shapes)
+        if name == "safer2pp":
+            out[name]["model"] = model    # served by phase 14
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def user_batches(ds, rng, sizes):
+    """Request batches of ``ds``: for each size, the histories of that
+    many of its users, drawn without replacement."""
+    import numpy as np
+
+    from safer2_recommender_tpu_torch.data.dataset import Dataset
+
+    users = np.unique(ds.user_ids)
+    out = []
+    for n in sizes:
+        sel = rng.choice(users, size=min(int(n), users.size), replace=False)
+        m = np.isin(ds.user_ids, sel)
+        out.append(Dataset(ds.user_ids[m], ds.item_ids[m]))
+    return out
+
+
+def restore_fresh(trained, ckpt_dir):
+    """A fresh model of ``trained``'s kind restored from ``ckpt_dir`` with
+    its id sidecar; no DeviceData is built."""
+    from safer2_recommender_tpu_torch import CheckpointManager, get_model
+
+    fresh = get_model(trained.name, trained.cfg, trained.num_users,
+                      trained.num_items, device=trained.device)
+    state, epoch, meta = CheckpointManager(ckpt_dir).restore_with_meta(
+        fresh.state, generator=fresh.generator)
+    check(state is not None and meta is not None,
+          f"{trained.name}: no checkpoint with a sidecar in {ckpt_dir}")
+    fresh.state = state
+    fresh.load_checkpoint_meta(meta)
+    return fresh, epoch
+
+
+def check_served(tag, model, batch, got, want):
+    """Server ids ``got`` against recommend()'s ``want`` on ``batch``:
+    the same users, no history item, and the same ids."""
+    import numpy as np
+
+    (gu, gids), (wu, wids) = got, want
+    check(np.array_equal(gu, wu), f"{tag}: users differ from recommend()")
+    check(gids.shape == wids.shape, f"{tag}: shape {gids.shape}")
+    check(bool(((gids >= 0) & (gids < model.num_items)).all()),
+          f"{tag}: item id out of range")
+    seen = set(zip(batch.user_ids.tolist(), batch.item_ids.tolist()))
+    check(not any((u, i) in seen
+                  for u, row in zip(gu.tolist(), gids.tolist())
+                  for i in row), f"{tag}: a history item was recommended")
+    differ = int((gids != wids).any(axis=1).sum())
+    check(differ == 0, f"{tag}: {differ} of {gids.shape[0]} rows differ "
+          f"from recommend()")
+
+
+def p50_ms(fn, device, repeats=P50_REPEATS):
+    import numpy as np
+
+    fn()
+    times = []
+    for _ in range(repeats):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1000)
+    return float(np.median(times))
+
+
+def graph_matches_eager(srv, batch) -> bool:
+    """Serve ``batch``, then run its program's callable eagerly on the
+    same static inputs: the replayed graph's ids must be bit-identical."""
+    import torch
+
+    from safer2_recommender_tpu_torch.utils.device import f32_matmul
+
+    _, shapes, _, _ = next(srv._pack(batch.user_ids, batch.item_ids))
+    srv.recommend(batch)
+    prog = srv.programs()[shapes]
+    graph_ids = (prog.out if prog.out is not None else prog.fn()).clone()
+    with f32_matmul():
+        eager_ids = prog.fn()
+    return bool(torch.equal(graph_ids, eager_ids))
+
+
+def pool_bytes(srv):
+    """Bytes reserved in the Server's graph memory pool (None where the
+    allocator's snapshot does not name pools)."""
+    import torch
+
+    if srv._pool is None:
+        return 0
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) == tuple(srv._pool))
+
+
+def serve_model(tag, model, server_model, batches, b64, block_chol, device,
+                approx_overlap=False):
+    """One model through a Server: the first pass builds the programs
+    (launch counts set to 0 just before it and read after, the kernel's
+    shapes recorded), the second is timed; then the checks of
+    ``check_served``, graph against eager, no new program, the stream;
+    p50 at batch 64 from the graph and from ``recommend``."""
+    import numpy as np
+    import torch
+
+    from safer2_recommender_tpu_torch import Server
+
+    srv = Server(server_model, k=10)
+    block_chol.reset_launches()
+    with recorded_chol_shapes(block_chol) as shapes:
+        first = [srv.recommend(b) for b in batches]
+    sync(device)
+    launches = dict(block_chol.LAUNCHES)
+    compiles = srv.num_compiles
+    progs = srv.programs().values()
+    check(sum(launches.values()) > 0,
+          f"{tag}: chol_inverse was never launched on the served path")
+    check(all(p.graph is not None for p in progs),
+          f"{tag}: a program holds no CUDA graph")
+    # each program's warm-up ran what its capture recorded; every replay
+    # ran it again
+    want_launches = {r: sum(p.capture_launches[r] * (1 + p.replays)
+                            for p in progs)
+                     for r in block_chol.KERNEL_SIZES}
+    check(launches == want_launches, f"{tag}: launches {launches}, but the "
+          f"warm-ups and replays ran {want_launches}")
+    check(len(shapes) == 2 * sum(sum(p.capture_launches.values())
+                                 for p in progs),
+          f"{tag}: {len(shapes)} wrapper calls for the warm-ups and "
+          f"captures")
+    second, batch_ms = [], []
+    for b in batches:
+        sync(device)
+        t0 = time.perf_counter()
+        second.append(srv.recommend(b))
+        batch_ms.append((time.perf_counter() - t0) * 1000)
+    secs = sum(batch_ms) / 1000
+    served = sum(u.size for u, _ in second)
+    check(srv.num_compiles == compiles,
+          f"{tag}: a new graph after the first pass ({compiles} -> "
+          f"{srv.num_compiles})")
+    for (u1, i1), (u2, i2) in zip(first, second):
+        check(np.array_equal(u1, u2) and np.array_equal(i1, i2),
+              f"{tag}: a replay differs from the first pass")
+    streamed = list(srv.recommend_stream(batches))
+    check(len(streamed) == len(batches) and all(
+        np.array_equal(a[1], b[1]) for a, b in zip(streamed, first)),
+          f"{tag}: recommend_stream differs from the loop")
+    rec_ms = []
+    for i, (b, got) in enumerate(zip(batches, first)):
+        sync(device)
+        t0 = time.perf_counter()
+        want = model.recommend(b, k=10)
+        sync(device)
+        rec_ms.append((time.perf_counter() - t0) * 1000)
+        check_served(f"{tag} batch {i}", model, b, got, want)
+    check(graph_matches_eager(srv, b64),
+          f"{tag}: the graph's ids differ from its program run eagerly")
+    check(srv.num_compiles >= compiles, f"{tag}: programs lost")
+    srv_p50 = p50_ms(lambda: srv.recommend(b64), device)
+    rec_p50 = p50_ms(lambda: model.recommend(b64, k=10), device)
+    out = dict(
+        users=int(served), users_per_s=served / secs,
+        batch_users=[int(u.size) for u, _ in first], batch_ms=batch_ms,
+        p50_ms_batch64=srv_p50, recommend_p50_ms_batch64=rec_p50,
+        recommend_ms=rec_ms, rows=int(sum(u.size for u, _ in first)),
+        graphs=srv.num_compiles, replays=srv.replays,
+        launches=launches, shapes=shapes,
+        per_capture={str(list(k)): p.capture_launches
+                     for k, p in srv.programs().items()},
+        pool_bytes=pool_bytes(srv) if device.type == "cuda" else None)
+    if approx_overlap:
+        asrv = Server(server_model, k=10, approx=True)
+        ov = [np.mean([np.intersect1d(x, y).size / 10
+                       for x, y in zip(asrv.recommend(b)[1], got[1])])
+              for b, got in zip(batches, first)]
+        out["approx_overlap"] = float(np.mean(ov))
+        out["approx_graphs"] = asrv.num_compiles
+        del asrv
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def describe_served(r) -> str:
+    return (f"{r['users_per_s']:.1f} users/s over batches of "
+            f"{r['batch_users']} (second pass, synchronized host clock; ms "
+            f"per batch {[round(t, 2) for t in r['batch_ms']]}); "
+            f"p50 at batch 64 {r['p50_ms_batch64']:.2f} ms from the graph, "
+            f"{r['recommend_p50_ms_batch64']:.2f} ms by recommend(); "
+            f"{r['graphs']} graphs, {r['replays']} replays; ids equal to "
+            f"recommend() in all {r['rows']} rows; chol_inverse launches "
+            f"of the first pass by r (warm-ups + replays x per capture) "
+            f"{r['launches']}, per capture {r['per_capture']}")
+
+
+def phase_server(trained, ckpt_dirs, block_chol, device):
+    """Each ML-1M dim-32 model restored from its CLI checkpoint into a
+    fresh model and served by a Server over SERVE_BATCHES batches of held
+    -out users, checked against the trained model's recommend()."""
+    import numpy as np
+
+    from safer2_recommender_tpu_torch.data.dataset import Dataset
+
+    hist = Dataset.from_csv(os.path.join(ML1M, "validation_tr.csv"))
+    rng = np.random.default_rng(SERVE_SEED)
+    n_users = np.unique(hist.user_ids).size
+    sizes = rng.integers(1, min(1024, n_users) + 1, SERVE_BATCHES)
+    batches = user_batches(hist, rng, sizes)
+    b64 = user_batches(hist, rng, [64])[0]
+    out = {}
+    for name, model in trained.items():
+        fresh, epoch = restore_fresh(model, ckpt_dirs[name])
+        r = serve_model(f"server {name}", model, fresh, batches, b64,
+                        block_chol, device, approx_overlap=True)
+        r["restored_epoch"] = epoch
+        say("server", f"ML-1M {name} dim {model.cfg.dim}, restored at epoch "
+            f"{epoch}: "
+            + describe_served(r) + f"; approx=True top-10 overlap with "
+            f"the exact {r['approx_overlap']:.4f} ({r['approx_graphs']} "
+            f"graphs)")
+        out[name] = r
+    return out
+
+
+def phase_server50k(models, ds, block_chol, device):
+    """The 50k dim-512 SAFER2 and SAFER2++ models served: the 256 longest
+    histories and 1,024 random users, with SAFER2++'s recommend() time on
+    the 256."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED)
+    longest, sizes = longest_histories(ds, 256)
+    batches = [longest] + user_batches(ds, rng, [1024])
+    b64 = user_batches(ds, rng, [64])[0]
+    out = {}
+    for name, model in models.items():
+        r = serve_model(f"server50k {name}", model, model, batches, b64,
+                        block_chol, device)
+        say("server50k", f"50k {name} dim {model.cfg.dim}, the 256 longest "
+            f"histories "
+            f"({int(sizes.min())}-{int(sizes.max())} items) and 1,024 "
+            f"random users: " + describe_served(r)
+            + f"; recommend() ms per batch {[round(t, 1) for t in r['recommend_ms']]}"
+            f"; graph pool {r['pool_bytes']} B")
+        out[name] = r
     return out
 
 
@@ -628,10 +925,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from safer2_recommender_tpu_torch import cli
-    from safer2_recommender_tpu_torch.ops import bdot, block_chol, woodbury
-    from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
-    from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -648,6 +941,23 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}, float32_matmul_precision="
         f"{torch.get_float32_matmul_precision()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
+        run_phases(device, ckpt_root)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(device, ckpt_root: str) -> None:
+    """Phases 2-15; the kernel JSON line at the end. The CLI runs of
+    phases 6 and 11 save their checkpoints under ``ckpt_root``."""
+    import torch
+
+    from safer2_recommender_tpu_torch import cli
+    from safer2_recommender_tpu_torch.ops import bdot, block_chol, woodbury
+    from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
+    from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as ex:
@@ -668,7 +978,7 @@ def main() -> int:
 
     block_chol.reset_launches()
     with recorded_chol_shapes(block_chol) as shapes:
-        res = train(cli, 32, 10)
+        res = train(cli, 32, 10, ckpt=os.path.join(ckpt_root, "safer2"))
     dim32_launches = block_chol.total_launches()
     check(len(shapes) == dim32_launches, "dim 32: launches do not match calls")
     state = res.model.state
@@ -714,13 +1024,22 @@ def main() -> int:
     synth = phase_synth(block_chol, woodbury, device, workload,
                         time.perf_counter() - t0)
 
-    models = phase_models(cli, block_chol)
+    models, trained = phase_models(cli, block_chol, ckpt_root)
+    trained = dict(safer2=res.model, **trained)
+    server = phase_server(
+        trained, {n: os.path.join(ckpt_root, n) for n in trained},
+        block_chol, device)
+    del trained
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     wave = {r: sms * block_chol.resident_systems(r)
             for r in block_chol.KERNEL_SIZES}
     synth_models = phase_synth_models(block_chol, woodbury, device, workload,
                                       wave)
+    server50k = phase_server50k(
+        {"safer2": synth.pop("model"),
+         "safer2pp": synth_models["safer2pp"].pop("model")},
+        workload[0], block_chol, device)
     del workload
     torch.cuda.empty_cache()
 
@@ -742,6 +1061,10 @@ def main() -> int:
         f"synth50k-models (initialize + 3 epochs + a fold-in for the ++ "
         f"models): {json.dumps(hist)}")
     size = lambda sh: sh[0] * sh[1] * sh[2]
+    served = {"server_ml1m": [sh for r in server.values()
+                              for sh in r.pop("shapes")]}
+    for name, r in server50k.items():
+        served[f"server50k_{name}"] = r.pop("shapes")
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
         "most_frequent_ml1m_dim512": most_frequent(shapes512),
@@ -749,11 +1072,25 @@ def main() -> int:
         "most_frequent_synth50k": most_frequent(shapes50k),
         "largest_synth50k_safer2pp": max(shapes_pp, key=size),
         "most_frequent_synth50k_safer2pp": most_frequent(shapes_pp)}
+    for key, sh in served.items():
+        main_shapes[f"largest_{key}"] = max(sh, key=size)
+        main_shapes[f"most_frequent_{key}"] = most_frequent(sh)
     main_t = {}
     for key, shape in main_shapes.items():
         main_t[key] = time_at(chol_probe, device, shape)
         say("kernel", f"{key} {chol_probe.describe(main_t[key])}; max rel "
             f"err {main_t[key]['max_rel_err']:.3e} (tol {REL_TOL:g})")
+    # every other shape the served paths gave the kernel, compared only
+    rest = sorted({sh for v in served.values() for sh in v if sh[0] > 0}
+                  - set(main_shapes.values()))
+    served_err = 0.0
+    for shape in rest:
+        served_err = max(served_err,
+                         check_at(chol_probe, device, shape)[2]["max_abs_err"])
+    say("kernel", f"the kernel against its plain version at the other "
+        f"{len(rest)} shapes of the served paths {[list(sh) for sh in rest]}"
+        f": max abs err {served_err:.3e}, each system's rel err within "
+        f"{REL_TOL:g}")
     head = main_t["largest_ml1m_dim512"]
     probe_rows = {(row["h"], row["precision"]): row for row in probe["bdot"]}
     bdot_head = probe_rows[128, "highest"]
@@ -769,9 +1106,13 @@ def main() -> int:
                      + sum(sum(m["launches"].values())
                            for m in models.values())
                      + sum(m["total_launches"]
-                           for m in synth_models.values())),
+                           for m in synth_models.values())
+                     + sum(sum(r["launches"].values())
+                           for r in list(server.values())
+                           + list(server50k.values()))),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
-                           + [v["max_abs_err"] for v in main_t.values()]),
+                           + [v["max_abs_err"] for v in main_t.values()]
+                           + [served_err]),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
@@ -796,7 +1137,15 @@ def main() -> int:
                                 for n, m in synth_models.items()},
             "synth50k_models_fold_in": {
                 n: m["fold_in"]["launches"]
-                for n, m in synth_models.items() if m["fold_in"]}},
+                for n, m in synth_models.items() if m["fold_in"]},
+            "server_ml1m_dim32": {
+                n: dict(launches=r["launches"], per_capture=r["per_capture"],
+                        graphs=r["graphs"], replays=r["replays"])
+                for n, r in server.items()},
+            "server50k": {
+                n: dict(launches=r["launches"], per_capture=r["per_capture"],
+                        graphs=r["graphs"], replays=r["replays"])
+                for n, r in server50k.items()}},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
@@ -805,6 +1154,8 @@ def main() -> int:
         "synth50k": synth,
         "ml1m_dim32_models": models,
         "synth50k_models": synth_models,
+        "server_ml1m_dim32": server,
+        "server50k": server50k,
     }, {
         "name": "bdot",
         "route": "cuda",
@@ -827,10 +1178,6 @@ def main() -> int:
         "ptxas": bdot_ptxas,
         "solver_products": probe["solver"],
     }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -15,17 +15,23 @@ port.
 
 Public entry points:
   Dataset, DeviceData, FoldInData   data layer
-  get_model, MODEL_REGISTRY, SAFER2 models
+  IALS, IALSpp, ERMMF, CVaRMF, SAFER2, SAFER2pp,
+  get_model, MODEL_REGISTRY         models
+  Server                            fixed-shape serving (CUDA graphs)
+  CheckpointManager                 checkpoints (npz)
   Config                            hyperparameters
   EvaluationResult                  metrics
 """
 
+from safer2_recommender_tpu_torch.checkpoint import CheckpointManager
 from safer2_recommender_tpu_torch.config import Config
 from safer2_recommender_tpu_torch.data.dataset import (Dataset, DeviceData,
                                                        FoldInData)
 from safer2_recommender_tpu_torch.evaluation.metrics import EvaluationResult
-from safer2_recommender_tpu_torch.models import (MODEL_REGISTRY, SAFER2,
-                                                 get_model)
+from safer2_recommender_tpu_torch.models import (ERMMF, IALS, MODEL_REGISTRY,
+                                                 SAFER2, CVaRMF, IALSpp,
+                                                 SAFER2pp, get_model)
+from safer2_recommender_tpu_torch.serving import Server
 
 __version__ = "0.1.0"
 
@@ -36,7 +42,14 @@ __all__ = [
     "FoldInData",
     "EvaluationResult",
     "MODEL_REGISTRY",
+    "IALS",
+    "IALSpp",
+    "ERMMF",
+    "CVaRMF",
     "SAFER2",
+    "SAFER2pp",
+    "Server",
+    "CheckpointManager",
     "get_model",
     "__version__",
 ]

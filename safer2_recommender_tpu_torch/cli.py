@@ -11,7 +11,9 @@ package's (``safer2_recommender_tpu/cli.py``, itself the reference's
 
 All six models run (``ials``, ``ialspp``, ``erm_mf``, ``cvar_mf``,
 ``safer2``, ``safer2pp``), and the log lines are the JAX CLI's.
-``--device`` (default ``cuda``) picks
+``--checkpoint_dir`` resumes from the newest checkpoint there (with its
+id sidecar) and saves every ``--checkpoint_every`` epochs and at the
+end. ``--device`` (default ``cuda``) picks
 the device; a missing CUDA device is an error, never a silent switch to
 the CPU. Flags of features not ported yet are refused with the ROADMAP
 item that ports them.
@@ -42,7 +44,6 @@ MODEL_CHOICES = ("ials", "ialspp", "safer2", "safer2pp", "cvar_mf",
 _NOT_PORTED = {
     "--mesh": (lambda a: a.mesh != 0, 19),
     "--distributed": (lambda a: a.distributed != 0, 19),
-    "--checkpoint_dir": (lambda a: a.checkpoint_dir is not None, 16),
     "--profile_dir": (lambda a: a.profile_dir is not None, 7),
     "--use_cg": (lambda a: a.use_cg != 0, 14),
     "--block_interleaved": (lambda a: a.block_interleaved != 0, 12),
@@ -189,7 +190,26 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
     model.set_print_train_stats(bool(args.print_train_stats))
     model.set_print_residual_stats(bool(args.print_residual_stats))
     model.set_print_var_stats(bool(args.print_var_stats))
-    model.initialize(dd)
+
+    ckpt, restored, start_epoch = None, None, 0
+    if args.checkpoint_dir:
+        from safer2_recommender_tpu_torch.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        restored, start_epoch, meta = ckpt.restore_with_meta(
+            model.state, generator=model.generator)
+    if restored is not None:
+        model.state = restored
+        model.load_checkpoint_meta(meta)
+        log.info("Restored checkpoint at epoch %d", start_epoch)
+    else:
+        # the SAFER-family warm start is a full-dataset pass: skip it
+        # when a checkpoint overwrites the state anyway
+        model.initialize(dd)
+
+    def save(epoch: int) -> None:
+        ckpt.save(model.state, epoch, meta=model.checkpoint_meta(),
+                  generator=model.generator)
 
     def evaluate(epoch: int) -> EvaluationResult:
         metrics = model.evaluate_dataset(fold, DEFAULT_K_LIST,
@@ -200,9 +220,13 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
 
     step = max(1, args.epochs_per_dispatch)
     epoch_ms, mean_weights = [], []
-    epoch = 0
+    epoch = last_saved = start_epoch
     while epoch < cfg.epochs:
         n = min(step, cfg.epochs - epoch)
+        if ckpt is not None and args.checkpoint_every:
+            # land a dispatch boundary on every checkpoint multiple
+            k = args.checkpoint_every
+            n = min(n, k - epoch % k)
         with Timer(device) as t:
             if n == 1:
                 model.train_epoch(dd)
@@ -213,7 +237,17 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
         mean_weights.append(model.get_mean_weight())
         if args.print_evaluation_stats:
             evaluate(epoch + n - 1)
+        if ckpt is not None and args.checkpoint_every and (
+                (epoch + n) % args.checkpoint_every == 0):
+            save(epoch + n)
+            last_saved = epoch + n
         epoch += n
+
+    # persist the final state: --checkpoint_every may not divide --epoch
+    # (or may be unset while --checkpoint_dir is given)
+    if ckpt is not None and cfg.epochs > start_epoch \
+            and last_saved != cfg.epochs:
+        save(cfg.epochs)
 
     log.info("Validation Results")
     metrics = evaluate(cfg.epochs)

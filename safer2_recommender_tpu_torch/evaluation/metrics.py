@@ -31,13 +31,14 @@ DEFAULT_ALPHA_LIST = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
 
 def _mask_history(scores: torch.Tensor, excl: torch.Tensor) -> torch.Tensor:
     """Scores with each row's history items set to float lowest
-    (recommender.h:137-140); ``excl`` pads (== num_items) are skipped."""
+    (recommender.h:137-140); ``excl`` pads (== num_items) land in a spare
+    column that is cut off again, so no host read decides which entries
+    are real (a CUDA graph can hold this)."""
     b, num_items = scores.shape
-    rows = torch.arange(b, device=scores.device)[:, None].expand_as(excl)
-    keep = excl < num_items
-    masked = scores.clone()
-    masked[rows[keep], excl[keep]] = torch.finfo(scores.dtype).min
-    return masked
+    masked = torch.cat([scores, scores.new_empty((b, 1))], dim=1)
+    masked.scatter_(1, excl.clamp(max=num_items),
+                    torch.finfo(scores.dtype).min)
+    return masked[:, :num_items]
 
 
 def _ranked_ids(masked: torch.Tensor, k: int) -> torch.Tensor:
@@ -78,11 +79,19 @@ def topk_metrics(scores: torch.Tensor, excl: torch.Tensor, gt: torch.Tensor,
     return torch.stack(recalls, dim=1), torch.stack(ndcgs, dim=1)
 
 
-def topk_ids(scores: torch.Tensor, excl: torch.Tensor,
-             k: int) -> torch.Tensor:
+def topk_ids(scores: torch.Tensor, excl: torch.Tensor, k: int,
+             approx: bool = False) -> torch.Tensor:
     """Top-k item ids per row with training history masked out (the
-    serving counterpart of ``topk_metrics``; exact, same tie-break)."""
-    return _ranked_ids(_mask_history(scores, excl), min(k, scores.shape[1]))
+    serving counterpart of ``topk_metrics``; same tie-break).
+
+    ``approx=True`` ranks with ``torch.topk``, whose order among tied
+    scores is unspecified; the JAX package takes the TPU's
+    ``approx_max_k`` there. Evaluation always uses the exact path."""
+    masked = _mask_history(scores, excl)
+    k = min(k, scores.shape[1])
+    if approx:
+        return torch.topk(masked, k, dim=1).indices
+    return _ranked_ids(masked, k)
 
 
 def metric_cvar(values: np.ndarray,

@@ -30,6 +30,8 @@ from safer2_recommender_tpu_torch.evaluation.metrics import (
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.ops import woodbury
 from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
+                                                       f32_matmul,
+                                                       matmul_precision,
                                                        resolve_device)
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
@@ -118,6 +120,7 @@ class Recommender:
         self._dd_fp = None
         self._noted_dd_id = None
         self._fold_perm_cache = {}
+        self._perm_warned = False
 
     # ---- reference API surface -------------------------------------------
 
@@ -135,6 +138,7 @@ class Recommender:
         (reference safer2.h:812-817, Proposition C.1 hook)."""
         return float(self.state.dual_weight.mean())
 
+    @f32_matmul()
     def initialize(self, dd: DeviceData) -> None:
         """Pre-training warm start; overridden by the SAFER family."""
         self._note_perms(dd)
@@ -156,8 +160,11 @@ class Recommender:
             if self.state.steps > 0:
                 raise ValueError(
                     "export_state on a trained state with no recorded id "
-                    "permutation: call initialize()/train_epoch() with the "
-                    "training DeviceData first")
+                    "permutation: if this state was restored from a "
+                    "checkpoint, restore the id sidecar too "
+                    "(CheckpointManager.restore_with_meta + "
+                    "load_checkpoint_meta), or call initialize()/"
+                    "train_epoch() with the training DeviceData first")
             pu = np.arange(self.num_users)
             pi = np.arange(self.num_items)
         else:
@@ -170,6 +177,52 @@ class Recommender:
             "dual_weight": _host(s.dual_weight)[pu],
             "xi": float(s.xi),
         }
+
+    def checkpoint_meta(self) -> dict:
+        """Id-space sidecar for ``CheckpointManager.save`` (format v2):
+        the solver-order id orders and the training data's fingerprint,
+        which make a checkpoint self-contained. None before any
+        DeviceData was seen (a fresh, untrained model)."""
+        if self._user_order is None:
+            return None
+        return {
+            "format_version": np.int32(2),
+            "user_order": _host(self._user_order).astype(np.int32),
+            "item_order": _host(self._item_order).astype(np.int32),
+            "dd_fp": np.asarray(self._dd_fp, np.int64),
+        }
+
+    def load_checkpoint_meta(self, meta: dict) -> None:
+        """Adopt a restored checkpoint's id sidecar: evaluation, serving
+        and export are id-correct without rebuilding the training
+        DeviceData. ``meta=None`` (a checkpoint without a sidecar) warns
+        when the restored state is trained."""
+        if meta is None:
+            if self.state.steps > 0:
+                _log.warning(
+                    "restored checkpoint has no id sidecar (format v1) — "
+                    "evaluation/serving/export need the training "
+                    "DeviceData (same bucketing parameters) passed to "
+                    "initialize()/train_epoch() first to recover the id "
+                    "permutation")
+            return
+        uo = np.asarray(meta["user_order"], np.int64)
+        io = np.asarray(meta["item_order"], np.int64)
+        if uo.size != self.num_users or io.size != self.num_items:
+            raise ValueError(
+                f"checkpoint id sidecar sized ({uo.size}, {io.size}) does "
+                f"not match this model ({self.num_users}, "
+                f"{self.num_items}) — wrong checkpoint for this dataset?")
+        up = np.empty_like(uo)
+        up[uo] = np.arange(uo.size)
+        ip = np.empty_like(io)
+        ip[io] = np.arange(io.size)
+        put = lambda x: torch.from_numpy(x).to(self.device)
+        self._user_order, self._user_perm = put(uo), put(up)
+        self._item_order, self._item_perm = put(io), put(ip)
+        self._dd_fp = tuple(int(x) for x in meta["dd_fp"])
+        self._noted_dd_id = None
+        self._fold_perm_cache = {}
 
     def _note_perms(self, dd: DeviceData) -> None:
         """Remember the training data's solver-order permutation; model
@@ -216,9 +269,19 @@ class Recommender:
                       cache: bool = True) -> FoldInData:
         """Remap a FoldInData's item ids (fold-in histories, exclusion
         lists, ground truth) into the model's solver-order item space.
-        Cached per fold object; ``cache=False`` for transient folds."""
+        Cached per fold object; ``cache=False`` for transient folds.
+        Identity when no permutation is known, with a one-time warning
+        on a trained state (a checkpoint restored without its sidecar)."""
         perm = self._item_perm
         if perm is None:
+            if self.state.steps > 0 and not self._perm_warned:
+                self._perm_warned = True
+                _log.warning(
+                    "evaluating a trained state with no recorded id "
+                    "permutation — if this state was restored from a "
+                    "checkpoint, call initialize()/train_epoch() with "
+                    "the DeviceData first so ids can be remapped "
+                    "(docs/API.md 'Id spaces')")
             return fold
         if cache:
             hit = self._fold_perm_cache.get(id(fold))
@@ -245,12 +308,14 @@ class Recommender:
             self._fold_perm_cache[id(fold)] = (fold, out)
         return out
 
+    @f32_matmul()
     def train_epochs(self, dd: DeviceData, n: int) -> None:
         """Run ``n`` epochs without the per-epoch log lines."""
         self._note_perms(dd)
         for _ in range(n):
             self.state = self._epoch(self.state, dd)
 
+    @f32_matmul()
     def train_epoch(self, dd: DeviceData) -> None:
         self._note_perms(dd)
         if self._stats_order == "pre":
@@ -303,12 +368,36 @@ class Recommender:
                 loss_is_user_sum=(self._stats_order == "pre"))
         stats.log_loss_decomposition(vals, dd, t.ms)
 
-    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
-        """Return eval-user embeddings [fold.n_pad, dim]."""
+    def _fold_in_prep(self, state: MFState):
+        """The part of the fold-in that depends on the state alone: the
+        eigenbasis of the frozen Gramian (``woodbury.maybe_eigh``, whose
+        warm refresh reads the host once) and what else a model solves
+        with. Computed once per state snapshot, outside a CUDA graph."""
+        return None
+
+    def _fold_in(self, state: MFState, fold: FoldInData,
+                 prep=None) -> torch.Tensor:
+        """Return eval-user embeddings [fold.n_pad, dim]: the per-batch
+        solve. ``prep`` is ``_fold_in_prep(state)``; None computes it."""
         raise NotImplementedError
+
+    def _fold_in_split(self):
+        """The bucket width at and below which this model's fold-in
+        takes another route, or None: with the Woodbury path on (dim >=
+        ``woodbury.MIN_DIM``, no CG), a bucket of width <= dim / 2 solves
+        by Woodbury, a wider one directly. A fixed-shape batch
+        (``serving.Server``) keeps the rows at and below it in a bucket
+        of their own, as length bucketing does, so each row takes the
+        route ``recommend`` gives it (and short rows skip the d x d
+        systems)."""
+        cfg = self.cfg
+        if cfg.use_cg or cfg.dim < woodbury.MIN_DIM:
+            return None
+        return cfg.dim // 2
 
     # ---- evaluation and serving ---------------------------------------------
 
+    @f32_matmul()
     def evaluate_dataset(
         self,
         fold: FoldInData,
@@ -330,6 +419,7 @@ class Recommender:
             ndcg=_host(ndcg)[keep],
         )
 
+    @f32_matmul()
     def recommend(self, histories, k: int = 10, approx: bool = False):
         """Top-k recommendations for new users.
 
@@ -339,13 +429,16 @@ class Recommender:
         f32 with history masked out, and the exact top-k item ids are
         returned (ties rank the lower solver-order id first).
 
+        ``approx=True`` scores in TF32 on the card and ranks with
+        ``torch.topk``, whose order among near-tied items is unspecified:
+        the counterpart of the JAX package's default-precision scores and
+        ``approx_max_k``, but not the TPU's approximate top-k itself
+        (``torch.topk`` is exact on the scores it gets). On the CPU the
+        scores stay f32. Evaluation always stays exact.
+
         Returns ``(user_ids [n], item_ids [n, k])`` numpy arrays, rows
         aligned to the distinct users of ``histories``.
         """
-        if approx:
-            raise NotImplementedError(
-                "approx=True: approximate top-k is not ported to PyTorch "
-                "yet (ROADMAP Queue 1 item 15)")
         if isinstance(histories, Dataset):
             users = np.unique(histories.user_ids)
             empty = Dataset(np.zeros(0, np.int32), np.zeros(0, np.int32))
@@ -357,18 +450,25 @@ class Recommender:
             users = np.arange(fold.n_eval)
         fold = self._permute_fold(fold, cache=False)
         ue = self._fold_in(self.state, fold)
-        ids = self._recommend_ids(ue, self.state.item_emb, fold.excl, k=k)
+        ids = self._recommend_ids(ue, self.state.item_emb, fold.excl, k=k,
+                                  approx=approx)
         if self._item_order is not None:
             # decode solver-order item ids back to catalog ids
             ids = self._item_order[ids]
         return users, _host(ids)[: users.size]
 
     def _recommend_ids(self, ue: torch.Tensor, item_emb: torch.Tensor,
-                       excl: torch.Tensor, *, k: int) -> torch.Tensor:
+                       excl: torch.Tensor, *, k: int,
+                       approx: bool = False) -> torch.Tensor:
+        """Chunked scoring + top-k (bounds the [chunk, num_items] score
+        matrix); full f32, or TF32 on the card for ``approx``."""
         chunk = self._eval_chunk(ue.shape[0])
-        out = [topk_ids(ue[lo:lo + chunk] @ item_emb.T,
-                        excl[lo:lo + chunk], k)
-               for lo in range(0, ue.shape[0], chunk)]
+        out = []
+        for lo in range(0, ue.shape[0], chunk):
+            with matmul_precision("high" if approx else "highest"):
+                scores = ue[lo:lo + chunk] @ item_emb.T
+            out.append(topk_ids(scores, excl[lo:lo + chunk], k,
+                                approx=approx))
         return torch.cat(out)
 
     def _eval_chunk(self, n_pad: int) -> int:
@@ -477,15 +577,17 @@ class SaferFamilyMixin:
                            torch.zeros_like(dual))
 
     def _step_u(self, ue, item_emb, gramian, buckets, dual, pre_list=None,
-                q_prev=None):
+                q_prev=None, eig=None):
         """Weighted mean-normalized exact U-solves (reference
-        safer2.h:104-163 / erm_mf.h:91-151). Returns (new table, new
-        eigenbasis or None)."""
+        safer2.h:104-163 / erm_mf.h:91-151). ``eig`` is the Gramian's
+        (Q, lam); None computes it (``woodbury.maybe_eigh``, warm from
+        ``q_prev``). Returns (new table, new eigenbasis or None)."""
         cfg = self.cfg
         reg = self._user_reg()
-        eig = woodbury.maybe_eigh(gramian, cfg.dim, use_cg=cfg.use_cg,
-                                  q_prev=q_prev,
-                                  refresh_tol=cfg.eig_refresh_tol)
+        if eig is None:
+            eig = woodbury.maybe_eigh(gramian, cfg.dim, use_cg=cfg.use_cg,
+                                      q_prev=q_prev,
+                                      refresh_tol=cfg.eig_refresh_tol)
 
         def params_fn(b, pre=None):
             w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
@@ -518,10 +620,21 @@ class SaferFamilyMixin:
                                  use_cg=cfg.use_cg)
         return out, (eig[0] if eig is not None else None)
 
-    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+    def _fold_in_prep(self, state: MFState):
+        """(Q, lam) of the frozen item Gramian, warm from the carried
+        basis, or None on the direct path."""
+        cfg = self.cfg
+        return woodbury.maybe_eigh(state.item_gramian, cfg.dim,
+                                   use_cg=cfg.use_cg, q_prev=state.eig_qu,
+                                   refresh_tol=cfg.eig_refresh_tol)
+
+    def _fold_in(self, state: MFState, fold: FoldInData,
+                 prep=None) -> torch.Tensor:
         """StepU with weight 1.0 (reference safer2.h:246-252,
         erm_mf.h:234-244)."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
         ones = torch.ones((fold.n_pad,), device=self.device)
+        if prep is None:
+            prep = self._fold_in_prep(state)
         return self._step_u(ue, state.item_emb, state.item_gramian,
-                            fold.by_user, ones, q_prev=state.eig_qu)[0]
+                            fold.by_user, ones, eig=prep)[0]

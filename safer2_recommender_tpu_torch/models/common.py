@@ -310,11 +310,23 @@ class BlockSpec:
     ch: Optional[torch.Tensor] = None   # [N] history coefficient (None = 1)
 
 
+def block_eigh(gram: torch.Tensor, bs: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lam [nb, bs] clamped at 0, Q [nb, bs, bs]) of the Gramian's
+    diagonal bs-blocks by one batched eigh: the shared ingredients of the
+    block-level Woodbury solves of ``block_sweep_frozen``."""
+    nb = gram.shape[0] // bs
+    idx = torch.arange(nb, device=gram.device)
+    diag = gram.reshape(nb, bs, nb, bs)[idx, :, idx, :]      # [nb, bs, bs]
+    lam, q = torch.linalg.eigh(diag)
+    return lam.clamp(min=0.0), q
+
+
 def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
                        buckets: Sequence[Bucket], gram: torch.Tensor,
                        spec_fn, *, bs: int, n_sweeps: int = 1,
                        extra_vec: Optional[torch.Tensor] = None, eig=None,
-                       pre_list=None) -> torch.Tensor:
+                       block_eig=None, pre_list=None) -> torch.Tensor:
     """Blockwise coordinate sweep(s) of one side against the FROZEN other
     side, the ++ models' hot loop; returns a NEW table.
 
@@ -352,7 +364,8 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
         ``dim % bs == 0`` and ``bs >= 16``, a bucket with
         ``2 * width <= bs`` solves each block through the block-level
         Woodbury: one batched eigh of the Gramian's diagonal blocks,
-        shared by every row, and an L x L capacitance solve per row.
+        shared by every row, and an L x L capacitance solve per row
+        (``block_eig``, from ``block_eigh``; None computes it here).
 
     Every bs x bs (and L x L) system goes through ``solve.solve`` /
     ``block_chol.spd_solve``, so through the inverse-Cholesky kernel: a
@@ -373,11 +386,8 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
             and any(not assemble.is_wide(b, dim) and 2 * b.width <= bs
                     for b in buckets))
     if wood:
-        nb = dim // bs
-        idx = torch.arange(nb, device=gram.device)
-        diag = gram.reshape(nb, bs, nb, bs)[idx, :, idx, :]   # [nb, bs, bs]
-        lam_all, q_all = torch.linalg.eigh(diag)
-        lam_all = lam_all.clamp(min=0.0)
+        lam_all, q_all = (block_eig if block_eig is not None
+                          else block_eigh(gram, bs))
 
     def run_blocks(blk) -> None:
         for _ in range(n_sweeps):

@@ -18,6 +18,7 @@ from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin, _log)
 from safer2_recommender_tpu_torch.ops import assemble, quantile, woodbury
+from safer2_recommender_tpu_torch.utils.device import f32_matmul
 
 
 class CVaRMF(SaferFamilyMixin, Recommender):
@@ -91,17 +92,25 @@ class CVaRMF(SaferFamilyMixin, Recommender):
                              user_loss=loss, dual_weight=dual, xi=xi,
                              steps=state.steps + 1)
 
+    @f32_matmul()
     def initialize(self, dd: DeviceData) -> None:
         """Pre-compute losses (reference cvar_mf.h:710-726)."""
         self._init_losses(dd)
 
-    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+    def _fold_in_prep(self, state: MFState):
+        """(Q, lam) of the item Gramian by a full eigh (no warm basis:
+        training never solves exactly), or None on the direct path."""
+        return woodbury.maybe_eigh(state.item_gramian, self.cfg.dim,
+                                   use_cg=False)
+
+    def _fold_in(self, state: MFState, fold: FoldInData,
+                 prep=None) -> torch.Tensor:
         """Closed-form fold-in with weight 1 (reference cvar_mf.h:644-692:
         StepU_eval -> ProjectU_eval Cholesky solve)."""
         cfg = self.cfg
         ue = torch.zeros((fold.n_pad, cfg.dim), device=self.device)
         reg = self._user_reg()
-        eig = woodbury.maybe_eigh(state.item_gramian, cfg.dim, use_cg=False)
+        eig = self._fold_in_prep(state) if prep is None else prep
 
         def params_fn(b, pre=None):
             return common.params_weighted_mean(

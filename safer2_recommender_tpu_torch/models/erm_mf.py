@@ -19,6 +19,7 @@ from safer2_recommender_tpu_torch.data.dataset import DeviceData
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin)
+from safer2_recommender_tpu_torch.utils.device import f32_matmul
 
 
 class ERMMF(SaferFamilyMixin, Recommender):
@@ -52,6 +53,7 @@ class ERMMF(SaferFamilyMixin, Recommender):
                              eig_qv=qn_v if qn_v is not None
                              else state.eig_qv)
 
+    @f32_matmul()
     def initialize(self, dd: DeviceData) -> None:
         """Pre-compute losses (reference erm_mf.h:573-587; history sizes
         and item_reg live in DeviceData)."""

@@ -37,14 +37,16 @@ class IALS(Recommender):
         return ials_reg_vectors(self.cfg, dd)
 
     def _sweep(self, table_self, table_other, buckets, num_choices,
-               gram=None, pre_list=None, q_prev=None):
-        """Returns (new table, new eigenbasis or None)."""
+               gram=None, pre_list=None, q_prev=None, eig=None):
+        """Returns (new table, new eigenbasis or None). ``eig`` is the
+        Gramian's (Q, lam); None computes it, warm from ``q_prev``."""
         cfg = self.cfg
         if gram is None:
             gram = table_other.T @ table_other
-        eig = woodbury.maybe_eigh(gram, cfg.dim, use_cg=cfg.use_cg,
-                                  q_prev=q_prev,
-                                  refresh_tol=cfg.eig_refresh_tol)
+        if eig is None:
+            eig = woodbury.maybe_eigh(gram, cfg.dim, use_cg=cfg.use_cg,
+                                      q_prev=q_prev,
+                                      refresh_tol=cfg.eig_refresh_tol)
 
         def params_fn(b, pre=None):
             reg = common.ials_reg(b.length, num_choices, cfg.l2_reg,
@@ -80,10 +82,19 @@ class IALS(Recommender):
                              eig_qv=qn_v if qn_v is not None
                              else state.eig_qv)
 
-    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+    def _fold_in_prep(self, state: MFState):
+        cfg = self.cfg
+        return woodbury.maybe_eigh(state.item_gramian, cfg.dim,
+                                   use_cg=cfg.use_cg, q_prev=state.eig_qu,
+                                   refresh_tol=cfg.eig_refresh_tol)
+
+    def _fold_in(self, state: MFState, fold: FoldInData,
+                 prep=None) -> torch.Tensor:
         """One exact re-projection of the held-out users
         (reference ials.h:169-174)."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
+        if prep is None:
+            prep = self._fold_in_prep(state)
         return self._sweep(ue, state.item_emb, fold.by_user,
                            self.num_items, gram=state.item_gramian,
-                           q_prev=state.eig_qu)[0]
+                           eig=prep)[0]

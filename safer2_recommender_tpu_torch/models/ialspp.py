@@ -58,16 +58,36 @@ def _warn_interleaved_fallback(model) -> None:
             model.cfg.dim, model.cfg.block_size)
 
 
-def fold_in_eig(model, state: MFState):
-    """(Q, lam) for the ++ models' fold-in, or None. The fold-in follows
-    the training mode: blockwise sweeps under ``block_interleaved``,
-    collapsed to one exact solve (the full-dim Woodbury) by default."""
+def fold_in_prep(model, state: MFState):
+    """The state-only part of the ++ models' fold-in: ``(eig, block_eig)``.
+
+    ``eig`` is (Q, lam) of the item Gramian, or None: the fold-in follows
+    the training mode, blockwise sweeps under ``block_interleaved``,
+    collapsed to one exact solve (the full-dim Woodbury) by default.
+    ``block_eig`` is the diagonal blocks' eigendecomposition for the
+    block-level Woodbury (``common.block_eigh``) where it can engage."""
     cfg = model.cfg
-    if cfg.block_interleaved:
+    eig = None
+    if not cfg.block_interleaved:
+        eig = woodbury.maybe_eigh(state.item_gramian, cfg.dim, use_cg=False,
+                                  q_prev=state.eig_qu,
+                                  refresh_tol=cfg.eig_refresh_tol)
+    block_eig = None
+    if eig is None and cfg.dim % cfg.block_size == 0 \
+            and cfg.block_size >= 16:
+        block_eig = common.block_eigh(state.item_gramian, cfg.block_size)
+    return eig, block_eig
+
+
+def fold_in_split(model):
+    """Where ``eig`` is on, a bucket of width <= dim / 2 folds in by one
+    exact full-dim Woodbury solve and a wider one by the blockwise sweeps
+    (``common.block_sweep_frozen``): two results, not two roundings, so
+    the split is needed for the Server to equal ``recommend``."""
+    cfg = model.cfg
+    if cfg.block_interleaved or cfg.dim < woodbury.MIN_DIM:
         return None
-    return woodbury.maybe_eigh(state.item_gramian, cfg.dim, use_cg=False,
-                               q_prev=state.eig_qu,
-                               refresh_tol=cfg.eig_refresh_tol)
+    return cfg.dim // 2
 
 
 class IALSpp(Recommender):
@@ -135,13 +155,21 @@ class IALSpp(Recommender):
                              eig_qu=eig_u[0] if eig_u else state.eig_qu,
                              eig_qv=eig_v[0] if eig_v else state.eig_qv)
 
-    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+    def _fold_in_prep(self, state: MFState):
+        return fold_in_prep(self, state)
+
+    def _fold_in_split(self):
+        return fold_in_split(self)
+
+    def _fold_in(self, state: MFState, fold: FoldInData,
+                 prep=None) -> torch.Tensor:
         """``eval_fold_in_epochs`` blockwise fold-in sweeps (reference
         ialspp.h:149-206); the item table is frozen throughout, so one
         slab gather per bucket serves every block solve of every sweep."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
+        eig, block_eig = prep or fold_in_prep(self, state)
         return common.block_sweep_frozen(
             ue, state.item_emb, fold.by_user, state.item_gramian,
             self._spec_fn(self.num_items), bs=self.cfg.block_size,
-            n_sweeps=self.cfg.eval_fold_in_epochs,
-            eig=fold_in_eig(self, state))
+            n_sweeps=self.cfg.eval_fold_in_epochs, eig=eig,
+            block_eig=block_eig)

@@ -19,6 +19,7 @@ from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin, _log)
 from safer2_recommender_tpu_torch.ops import quantile, smoothing
+from safer2_recommender_tpu_torch.utils.device import f32_matmul
 
 
 class SAFER2(SaferFamilyMixin, Recommender):
@@ -87,6 +88,7 @@ class SAFER2(SaferFamilyMixin, Recommender):
                              steps=state.steps + 1, eig_qu=eq_u,
                              eig_qv=eq_v)
 
+    @f32_matmul()
     def initialize(self, dd: DeviceData) -> None:
         """Reference safer2.h:819-838. The loss/xi warm start runs at the
         top of the first epoch (see ``_epoch``); here only the loss is

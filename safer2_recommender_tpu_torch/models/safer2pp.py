@@ -31,7 +31,8 @@ from safer2_recommender_tpu_torch.data.dataset import DeviceData, FoldInData
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import MFState
 from safer2_recommender_tpu_torch.models.ialspp import (
-    _warn_interleaved_fallback, check_interleaved, fold_in_eig)
+    _warn_interleaved_fallback, check_interleaved, fold_in_prep,
+    fold_in_split)
 from safer2_recommender_tpu_torch.models.safer2 import SAFER2
 from safer2_recommender_tpu_torch.ops import smoothing, woodbury
 
@@ -135,14 +136,22 @@ class SAFER2pp(SAFER2):
                              steps=state.steps + 1, eig_qu=eq_u,
                              eig_qv=eq_v)
 
-    def _fold_in(self, state: MFState, fold: FoldInData) -> torch.Tensor:
+    def _fold_in_prep(self, state: MFState):
+        return fold_in_prep(self, state)
+
+    def _fold_in_split(self):
+        return fold_in_split(self)
+
+    def _fold_in(self, state: MFState, fold: FoldInData,
+                 prep=None) -> torch.Tensor:
         """``eval_fold_in_epochs`` blockwise fold-in sweeps with weight 1
         (reference safer2pp.h:220-286); the frozen item table means one
         slab gather per bucket serves every sweep."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
         ones = torch.ones((fold.n_pad,), device=self.device)
+        eig, block_eig = prep or fold_in_prep(self, state)
         return common.block_sweep_frozen(
             ue, state.item_emb, fold.by_user, state.item_gramian,
             self._spec_u(ones), bs=self.cfg.block_size,
-            n_sweeps=self.cfg.eval_fold_in_epochs,
-            eig=fold_in_eig(self, state))
+            n_sweeps=self.cfg.eval_fold_in_epochs, eig=eig,
+            block_eig=block_eig)

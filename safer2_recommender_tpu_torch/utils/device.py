@@ -1,16 +1,69 @@
-"""The device an entry point runs on.
+"""The device an entry point runs on, and the float32 matmul precision
+it computes in.
 
 The port's entry points (``get_model``, ``Recommender``,
 ``DeviceData.build``, ``FoldInData.build``, the CLI) run on the card
 unless the caller asks for the CPU. Without CUDA they raise; they never
 fall back to the CPU on their own.
+
+The JAX package asks for ``Precision.HIGHEST`` at each product where
+near-ties must not reorder. PyTorch's precision is process-wide, so the
+model's entry points run under ``f32_matmul()``, which turns TF32 off
+for their duration and restores whatever the caller had set.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
+
+
+def _read(getter):
+    """A legacy precision flag, or None where torch refuses to read it
+    (a caller that mixed the legacy and the ``fp32_precision`` API)."""
+    try:
+        return getter()
+    except RuntimeError:
+        return None
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """Run the body under ``torch.set_float32_matmul_precision(precision)``
+    with cuDNN's TF32 off, then restore the caller's settings exactly.
+
+    Both the legacy flags (``set_float32_matmul_precision``,
+    ``cudnn.allow_tf32``) and the per-backend ``fp32_precision`` knobs of
+    torch >= 2.9 that they map onto are saved and put back. The body sets
+    them through the legacy calls only, which keep the two in step:
+    torch refuses to read the legacy flags once they disagree."""
+    be = torch.backends
+    legacy = _read(torch.get_float32_matmul_precision)
+    cudnn = _read(lambda: be.cudnn.allow_tf32)
+    knobs = [(k, k.fp32_precision) for k in (
+        getattr(be.cuda, "matmul", None), getattr(be.mkldnn, "matmul", None),
+        getattr(be.cudnn, "conv", None), getattr(be.cudnn, "rnn", None))
+        if hasattr(k, "fp32_precision")]
+    torch.set_float32_matmul_precision(precision)
+    be.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if legacy is not None:
+            torch.set_float32_matmul_precision(legacy)
+        if cudnn is not None:
+            be.cudnn.allow_tf32 = cudnn
+        for knob, value in knobs:
+            knob.fp32_precision = value
+
+
+def f32_matmul():
+    """Full float32 products (no TF32 anywhere) for the body; usable as a
+    decorator (``@f32_matmul()``) or a ``with`` block."""
+    return matmul_precision("highest")
 
 
 class DeviceUnavailable(RuntimeError):

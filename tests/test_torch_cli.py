@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,7 +79,6 @@ def _refused(argv, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2"], "item 19"),
     (["--distributed", "1"], "item 19"),
-    (["--checkpoint_dir", "ckpt"], "item 16"),
     (["--profile_dir", "prof"], "item 7"),
     (["--use_cg", "1"], "item 14"),
     (["--block_interleaved", "1"], "item 12"),
@@ -87,6 +87,36 @@ def test_cli_refuses_unported_flags(flags, item, capsys):
     err = _refused(["--model_name", "safer2", "--device", "cpu"] + flags,
                    capsys)
     assert "not ported to PyTorch yet" in err and item in err
+
+
+def test_cli_checkpoint_dir_saves_and_resumes(tmp_path, capsys):
+    # --checkpoint_dir is ported (it was refused with item 16): a run of 2
+    # epochs saves, a run to 3 resumes from epoch 2 and trains one more,
+    # and ends where an uninterrupted 3-epoch run ends
+    from safer2_recommender_tpu_torch import cli
+    from safer2_recommender_tpu_torch.checkpoint import CheckpointManager
+
+    base = ["--model_name", "safer2", "--device", "cpu", "--dim", "8",
+            "--uobs_weight", "0.004", "--l2_reg", "0.004", "--alpha", "0.3",
+            "--bandwidth", "0.15", "--print_train_stats", "0",
+            "--train_data", os.path.join(ML1M_DIR, "train.csv"),
+            "--test_train_data", os.path.join(ML1M_DIR, "validation_tr.csv"),
+            "--test_test_data", os.path.join(ML1M_DIR, "validation_te.csv")]
+    ck = str(tmp_path / "ckpt")
+    torch.set_num_threads(1)
+    cli.run(base + ["--epoch", "2", "--checkpoint_dir", ck])
+    assert CheckpointManager(ck).latest_epoch() == 2
+    capsys.readouterr()
+    resumed = cli.run(base + ["--epoch", "3", "--checkpoint_dir", ck])
+    assert "Restored checkpoint at epoch 2" in capsys.readouterr().err
+    assert CheckpointManager(ck).latest_epoch() == 3
+    assert len(resumed.epoch_ms) == 1            # one epoch was trained
+    straight = cli.run(base + ["--epoch", "3"])
+    got, want = resumed.model.export_state(), straight.model.export_state()
+    for key in ("user_emb", "item_emb", "dual_weight"):
+        np.testing.assert_array_equal(got[key], want[key])
+    np.testing.assert_array_equal(resumed.metrics.ndcg,
+                                  straight.metrics.ndcg)
 
 
 @pytest.mark.parametrize("name,flags,message", [

@@ -34,8 +34,34 @@ def test_port_imports_no_jax():
     assert bad == "[]", bad
     for mod in ("ops.woodbury", "ops.bdot", "data.synth", "probes.bdot",
                 "probes.epoch_profile", "models.ials", "models.ialspp",
-                "models.erm_mf", "models.cvar_mf", "models.safer2pp"):
+                "models.erm_mf", "models.cvar_mf", "models.safer2pp",
+                "serving", "checkpoint"):
         assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
+
+
+def test_package_root_exports_the_jax_names():
+    # every name the JAX package's root exports (its six models, Server,
+    # ...) is exported by the port's root under the same name; the JAX
+    # list is read from its source, so this test imports no JAX
+    with open(os.path.join(REPO, "safer2_recommender_tpu",
+                           "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and getattr(node.targets[0], "id", None) == "__all__")
+    import safer2_recommender_tpu_torch as port
+    assert {"IALS", "IALSpp", "ERMMF", "CVaRMF", "SAFER2", "SAFER2pp",
+            "Server"} <= set(jax_all)
+    missing = [n for n in jax_all if n not in port.__all__
+               or not hasattr(port, n)]
+    assert missing == []
+    from safer2_recommender_tpu_torch.checkpoint import CheckpointManager
+    from safer2_recommender_tpu_torch.models import MODEL_REGISTRY
+    from safer2_recommender_tpu_torch.serving import Server
+    assert port.Server is Server
+    assert port.CheckpointManager is CheckpointManager
+    assert {getattr(port, c.__name__) for c in MODEL_REGISTRY.values()} == \
+        set(MODEL_REGISTRY.values())
 
 
 _JAX_PKG = re.compile(r"safer2_recommender_tpu(?!_torch)")

@@ -324,10 +324,6 @@ def test_unported_paths_raise(small):
             get_model(name, Config(dim=8, block_size=4,
                                    block_interleaved=True), ds.num_users,
                       ds.num_items, device="cpu")
-    m = get_model("safer2", Config(), ds.num_users, ds.num_items,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        m.recommend(ds, approx=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         solve.solve(torch.eye(8)[None], torch.ones(1, 8), use_cg=True)
 
@@ -356,11 +352,16 @@ def test_entry_points_default_to_the_card(small, entry):
             calls[entry]()
 
 
-def test_rebucketed_data_remaps_trained_tables(small):
+@pytest.mark.parametrize("name,cfg", [
+    ("safer2", SAFER_CFG),
+    # tests/test_checkpoint.py's rebucketing cases (iALS)
+    ("ials", dict(dim=8))])
+def test_rebucketed_data_remaps_trained_tables(small, name, cfg):
     # a trained state fed the same data bucketed differently (another
-    # solver order) is remapped, not silently misaligned
+    # solver order) is remapped, not silently misaligned, and training
+    # goes on as it would have in the first order
     _, _, ds, dd = small
-    m = get_model("safer2", Config(**SAFER_CFG), ds.num_users, ds.num_items,
+    m = get_model(name, Config(**cfg), ds.num_users, ds.num_items,
                   device="cpu")
     m.initialize(dd)
     m.train_epoch(dd)
@@ -369,8 +370,17 @@ def test_rebucketed_data_remaps_trained_tables(small):
     assert not torch.equal(dd4.user_order, dd.user_order)
     m._note_perms(dd4)
     after = m.export_state(dd4)
-    for name in ("user_emb", "item_emb", "user_loss", "dual_weight"):
-        np.testing.assert_array_equal(after[name], before[name])
+    for key in ("user_emb", "item_emb", "user_loss", "dual_weight"):
+        np.testing.assert_array_equal(after[key], before[key])
+    m.train_epoch(dd4)
+    ref = get_model(name, Config(**cfg), ds.num_users, ds.num_items,
+                    device="cpu")
+    ref.initialize(dd)
+    ref.train_epoch(dd)
+    ref.train_epoch(dd)
+    np.testing.assert_allclose(m.export_state()["user_emb"],
+                               ref.export_state()["user_emb"],
+                               rtol=2e-4, atol=1e-5)
     with pytest.raises(ValueError, match="id universe"):
         m._note_perms(DeviceData.build(Dataset(ds.user_ids[:-1],
                                                ds.item_ids[:-1]),

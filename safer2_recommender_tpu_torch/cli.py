@@ -45,8 +45,6 @@ _NOT_PORTED = {
     "--mesh": (lambda a: a.mesh != 0, 19),
     "--distributed": (lambda a: a.distributed != 0, 19),
     "--profile_dir": (lambda a: a.profile_dir is not None, 7),
-    "--use_cg": (lambda a: a.use_cg != 0, 14),
-    "--block_interleaved": (lambda a: a.block_interleaved != 0, 12),
 }
 
 

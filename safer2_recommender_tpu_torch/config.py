@@ -6,9 +6,9 @@ Mirrors the flag surface of the reference CLI (reference
 tools/run_model.cc:129-231) so a user of the reference can port commands
 1:1. Defaults equal the reference defaults.
 
-Fields of unported features (``use_cg``, ``block_interleaved``) stay so
-a JAX Config's values carry over unchanged; the port raises
-``NotImplementedError`` where one would change the computation.
+Every field of the JAX package's Config is here, so its values carry
+over unchanged; ``compute_dtype="bf16"`` raises ``NotImplementedError``
+(ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -78,9 +78,9 @@ class Config:
     # dim >= 256 (ops/woodbury.py::refresh_eigh); 0 takes a full eigh
     # every sweep.
     eig_refresh_tol: float = 8e-2
-    # Reference-order blockwise training of the ++ models (not ported:
-    # raises where it would engage, dim % block_size == 0; otherwise
-    # the frozen sweep runs with a warning, as in the JAX package).
+    # Reference-order blockwise training of the ++ models (per block,
+    # StepU then StepV); needs dim % block_size == 0, otherwise the
+    # frozen sweep runs with a warning, as in the JAX package.
     block_interleaved: bool = False
 
     def replace(self, **kw) -> "Config":

@@ -596,7 +596,10 @@ class SaferFamilyMixin:
                 cfg.uobs_weight, w, pre=pre)
 
         out = common.solve_sweep(ue, buckets, params_fn, gramian, eig=eig,
-                                 use_cg=cfg.use_cg, pre_list=pre_list)
+                                 use_cg=cfg.use_cg,
+                                 cg_tol=cfg.cg_error_tolerance,
+                                 cg_iters=cfg.cg_max_iterations,
+                                 pre_list=pre_list)
         return out, (eig[0] if eig is not None else None)
 
     def _step_v(self, v, user_emb, dd: DeviceData, dual, q_prev=None):
@@ -617,7 +620,9 @@ class SaferFamilyMixin:
                 user_emb, b, reg, cfg.uobs_weight, norm_dual)
 
         out = common.solve_sweep(v, dd.by_item, params_fn, w_gram, eig=eig,
-                                 use_cg=cfg.use_cg)
+                                 use_cg=cfg.use_cg,
+                                 cg_tol=cfg.cg_error_tolerance,
+                                 cg_iters=cfg.cg_max_iterations)
         return out, (eig[0] if eig is not None else None)
 
     def _fold_in_prep(self, state: MFState):

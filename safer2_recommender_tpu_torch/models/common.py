@@ -144,6 +144,7 @@ def grad_from_params(p: SolveParams, gram: torch.Tensor,
 
 def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
                 gram: torch.Tensor, *, eig=None, use_cg: bool = False,
+                cg_tol: float = 1e-10, cg_iters: int = 100,
                 pre_list=None) -> torch.Tensor:
     """One full ALS sweep over all buckets; returns a NEW table (the
     input is copied once, then updated in place bucket by bucket).
@@ -158,7 +159,9 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
     solve per row), and the direct d x d systems are assembled and
     solved in the eigenbasis, except in a batch that holds a wide
     bucket (``_direct_groups``). Without it every bucket is solved
-    directly. ``woodbury.SOLVE_PATHS`` counts the rows of each path."""
+    directly. ``use_cg`` solves the direct systems by batched conjugate
+    gradient (``solve.cg_solve`` with ``cg_tol`` / ``cg_iters``), never
+    rotated. ``woodbury.SOLVE_PATHS`` counts the rows of each path."""
     table = table.clone()
     if not buckets:
         return table
@@ -195,6 +198,7 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
             rhs.append(s[1])
             ridge.append(s[2])
         x = solve.solve(torch.cat(a), torch.cat(rhs), use_cg=use_cg,
+                        tol=cg_tol, max_iters=cg_iters,
                         ridge=torch.cat(ridge))
         del a, rhs, ridge
         if g_rot:
@@ -482,6 +486,193 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
         return assemble.scatter_bucket(tbl, b, x)
 
     return sweep_apply(buckets, pre_list, table, do_bucket)
+
+
+# --------------------------------------------------------------------------
+# Interleaved (reference-order) blockwise sweep
+# --------------------------------------------------------------------------
+
+
+def _column_offsets(chunks):
+    """``(column offset, chunk)`` for each ``(emb, mask, extra)`` chunk
+    of ``assemble.wide_chunks``, left to right."""
+    off = 0
+    for c in chunks:
+        yield off, c
+        off += c[1].shape[1]
+
+
+def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
+                            by_user: Sequence[Bucket],
+                            by_item: Sequence[Bucket], spec_u_fn, spec_v_fn,
+                            *, bs: int,
+                            extra_vec_v: Optional[torch.Tensor] = None,
+                            g_weight_v: Optional[torch.Tensor] = None):
+    """Reference-order blockwise epoch: for each block s, StepU(s) then
+    StepV(s) (ialspp.h:208-261, safer2pp.h:303-319), the trajectory
+    ``block_sweep_frozen`` reorders. Returns NEW ``(u, v, preds_u)``.
+
+    Each U block sees the same pd iteration's earlier V blocks and vice
+    versa, and each block's local and local-global Gramians come from
+    the LIVE other table (ialspp.h:362-365, safer2pp.h:532-544): G_lg =
+    O_blk^T O ([bs, dim]), computed once per side step, with O_blk
+    weighted row-wise by ``g_weight_v`` on the V side (U^T diag(z) U).
+    The reference's flat per-tuple prediction cache (ialspp.h:399-406)
+    becomes per-slot predictions carried in both adjacency views, one
+    [N, L] tensor per bucket: a side step advances its own view's by the
+    solved deltas, and ``propagate`` advances the other view's through
+    the [rows, bs] delta table (pred[n, l] += delta[col[n, l]] .
+    x[row, s:s+bs]), the cross-view half of the cache update.
+
+    ``spec_*_fn(bucket) -> BlockSpec`` as in ``block_sweep_frozen``;
+    ``extra_vec_v`` is the item sweep's per-user slot weight z/|H_u|.
+    Every block solve goes through ``solve.solve`` (so the kernel at
+    r = bs), one launch per bucket per block per side. Zipf-head buckets
+    (``assemble.is_wide``) never gather an [N, L, bs] slab: their block
+    gathers stream through column chunks (``assemble.wide_chunks``).
+    Requires
+    ``dim % bs == 0`` (the models fall back to the frozen sweep
+    otherwise). ``preds_u`` aligns with ``by_user`` and feeds
+    ``losses_from_preds``. ``woodbury.SOLVE_PATHS`` counts each bucket's
+    rows once per call under ``block`` (and ``wide``)."""
+    dim = u.shape[1]
+    if dim % bs:
+        raise ValueError(f"interleaved sweep needs dim % bs == 0, got "
+                         f"dim {dim}, bs {bs}")
+    u, v = u.clone(), v.clone()
+    paths = woodbury.SOLVE_PATHS
+
+    def pred_bucket(b: Bucket, tbl_self, other) -> torch.Tensor:
+        """Fresh per-slot predictions, accumulated block by block, so no
+        [N, L, dim] slab is built. Counts the bucket's rows once."""
+        x_full = assemble.read_rows(tbl_self, b)
+        pred = torch.zeros((b.n_rows, b.width), dtype=torch.float32,
+                           device=u.device)
+        wide = assemble.is_wide(b, dim)
+        paths["block"] += b.n_rows
+        paths["wide"] += b.n_rows if wide else 0
+        for s in range(0, dim, bs):
+            o_blk, x_loc = other[:, s:s + bs], x_full[:, s:s + bs]
+            if not wide:
+                pred += assemble.rowwise_dot(
+                    assemble.gather_history(o_blk, b)[0], x_loc)
+                continue
+            for off, (emb, _, _) in _column_offsets(
+                    assemble.wide_chunks(o_blk, None, b)):
+                pred[:, off:off + emb.shape[1]] += assemble.rowwise_dot(
+                    emb, x_loc)
+        return pred
+
+    def side_step(tbl_self, other, s, buckets, preds, spec_fn, extra,
+                  g_weight) -> torch.Tensor:
+        """StepU / StepV at block offset ``s`` (ialspp.h:85-145,
+        safer2pp.h:97-216): delta solves against the live Gramians.
+        Updates ``tbl_self`` and ``preds`` in place; returns the
+        [rows, bs] delta table."""
+        o_blk = other[:, s:s + bs]
+        lhs = o_blk if g_weight is None else o_blk * g_weight[:, None]
+        g_lg = lhs.T @ other                       # [bs, dim], live
+        g_loc = g_lg[:, s:s + bs]
+        dacc = torch.zeros((tbl_self.shape[0], bs), dtype=torch.float32,
+                           device=tbl_self.device)
+
+        def finish(spec, rhs, a, x_full, x_loc) -> torch.Tensor:
+            if spec.ch is not None:
+                rhs = rhs * spec.ch[:, None]
+                a = a * spec.ch[:, None, None]
+            rhs = (rhs + spec.cg[:, None] * (x_full @ g_lg.T)
+                   + spec.reg[:, None] * x_loc)
+            a = a + spec.cg[:, None, None] * g_loc[None]
+            return -solve.solve(a, rhs, ridge=spec.reg)
+
+        for b, pred in zip(buckets, preds):
+            spec = spec_fn(b)
+            x_full = assemble.read_rows(tbl_self, b)
+            x_loc = x_full[:, s:s + bs]
+            if assemble.is_wide(b, dim):
+                # two streamed passes: accumulate the block system, then
+                # advance the carried predictions by the solved delta
+                a = torch.zeros((b.n_rows, bs, bs), dtype=torch.float32,
+                                device=u.device)
+                rhs = torch.zeros((b.n_rows, bs), dtype=torch.float32,
+                                  device=u.device)
+                for off, (emb, mask, wt) in _column_offsets(
+                        assemble.wide_chunks(o_blk, extra, b)):
+                    resid = pred[:, off:off + mask.shape[1]] - mask
+                    rhs += assemble.row_sums(
+                        emb, col_weight=resid if wt is None else wt * resid)
+                    a += assemble.row_gramians(emb, col_weight=wt)
+                delta = finish(spec, rhs, a, x_full, x_loc)
+                for off, (emb, _, _) in _column_offsets(
+                        assemble.wide_chunks(o_blk, None, b)):
+                    pred[:, off:off + emb.shape[1]] += assemble.rowwise_dot(
+                        emb, delta)
+            else:
+                if extra is None:
+                    emb, mask = assemble.gather_history(o_blk, b)
+                    wt = None
+                else:
+                    emb, mask, wt = assemble.gather_history_extra(
+                        o_blk, extra, b)
+                resid = pred - mask
+                delta = finish(
+                    spec,
+                    assemble.row_sums(
+                        emb, col_weight=resid if wt is None else wt * resid),
+                    assemble.row_gramians(emb, col_weight=wt),
+                    x_full, x_loc)
+                pred += assemble.rowwise_dot(emb, delta)
+            # x_full and x_loc may be views of the table: written last
+            assemble.scatter_bucket(tbl_self[:, s:s + bs], b, x_loc + delta)
+            assemble.scatter_bucket(dacc, b, delta)
+        return dacc
+
+    def propagate(buckets, preds, dacc, tbl_self, s) -> None:
+        """Fold the other side's block deltas into this view's carried
+        predictions, in place; f32 throughout (the increments
+        compound)."""
+        x_blk = tbl_self[:, s:s + bs]
+        for b, pred in zip(buckets, preds):
+            xb = assemble.read_rows(x_blk, b)
+            if not assemble.is_wide(b, dim):
+                pred += assemble.rowwise_dot(
+                    assemble.gather_history(dacc, b)[0], xb)
+                continue
+            for off, (dg, _, _) in _column_offsets(
+                    assemble.wide_chunks(dacc, None, b)):
+                pred[:, off:off + dg.shape[1]] += assemble.rowwise_dot(dg, xb)
+
+    preds_u = [pred_bucket(b, u, v) for b in by_user]
+    preds_i = [pred_bucket(b, v, u) for b in by_item]
+    for s in range(0, dim, bs):
+        du = side_step(u, v, s, by_user, preds_u, spec_u_fn, None, None)
+        propagate(by_item, preds_i, du, v, s)
+        dv = side_step(v, u, s, by_item, preds_i, spec_v_fn, extra_vec_v,
+                       g_weight_v)
+        propagate(by_user, preds_u, dv, u, s)
+    return u, v, preds_u
+
+
+def losses_from_preds(preds_u, by_user: Sequence[Bucket], u: torch.Tensor,
+                      gram: torch.Tensor, num_users: int, uobs: float, *,
+                      mean: bool, halve: bool) -> torch.Tensor:
+    """Per-user losses from the carried per-slot predictions of
+    ``block_sweep_interleaved``, the counterpart of the reference's
+    cache-based ComputeUserLoss (safer2pp.h:611-652):
+    sum_h (pred - 1)^2 [/ |H| if mean] + uobs * u^T G u [x 0.5 if
+    halve]. Absent users keep loss 0."""
+    out = torch.zeros((num_users,), dtype=torch.float32, device=u.device)
+    for b, p in zip(by_user, preds_u):
+        mask = assemble.history_mask(b)
+        obs = (torch.square(p - mask) * mask).sum(dim=1)
+        if mean:
+            obs = obs / safe_len(b)
+        x = assemble.read_rows(u, b)
+        loss = obs + uobs * ((x @ gram) * x).sum(dim=1)
+        if halve:
+            loss = loss * 0.5
+        assemble.scatter_bucket_vector(out, b, loss)
+    return out
 
 
 # --------------------------------------------------------------------------

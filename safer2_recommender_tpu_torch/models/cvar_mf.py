@@ -103,6 +103,13 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         return woodbury.maybe_eigh(state.item_gramian, self.cfg.dim,
                                    use_cg=False)
 
+    def _fold_in_split(self):
+        """As the base class's, but ``use_cg`` does not apply: this
+        fold-in always solves directly."""
+        if self.cfg.dim < woodbury.MIN_DIM:
+            return None
+        return self.cfg.dim // 2
+
     def _fold_in(self, state: MFState, fold: FoldInData,
                  prep=None) -> torch.Tensor:
         """Closed-form fold-in with weight 1 (reference cvar_mf.h:644-692:

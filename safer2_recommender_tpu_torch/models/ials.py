@@ -56,6 +56,8 @@ class IALS(Recommender):
 
         out = common.solve_sweep(table_self, buckets, params_fn, gram,
                                  eig=eig, use_cg=cfg.use_cg,
+                                 cg_tol=cfg.cg_error_tolerance,
+                                 cg_iters=cfg.cg_max_iterations,
                                  pre_list=pre_list)
         return out, (eig[0] if eig is not None else None)
 

@@ -15,8 +15,9 @@ argument). The reference's flat prediction cache (ialspp.h:399-406,
 evaluation = ``eval_fold_in_epochs`` (8) blockwise fold-in sweeps
 (ialspp.h:149-206) that share one slab gather.
 
-The reference-order trajectory (``Config.block_interleaved`` with
-``dim % block_size == 0``) is not ported yet (ROADMAP Queue 1 item 12).
+``Config.block_interleaved`` with ``dim % block_size == 0`` trains in
+the reference's own order instead (``common.block_sweep_interleaved``),
+the loss coming from the carried predictions at the end of the epoch.
 """
 
 from __future__ import annotations
@@ -30,16 +31,10 @@ from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
 from safer2_recommender_tpu_torch.models.ials import ials_reg_vectors
 from safer2_recommender_tpu_torch.ops import woodbury
 
-INTERLEAVED_NOT_PORTED = (
-    "block_interleaved=True with dim % block_size == 0: the "
-    "reference-order blockwise sweep is not ported to PyTorch yet "
-    "(ROADMAP Queue 1 item 12)")
-
-
-def check_interleaved(cfg) -> None:
-    """Refuse the reference-order mode where it would engage."""
-    if cfg.block_interleaved and cfg.dim % cfg.block_size == 0:
-        raise NotImplementedError(INTERLEAVED_NOT_PORTED)
+def interleaved(cfg) -> bool:
+    """Does the reference-order sweep engage (``block_interleaved`` with
+    ``dim % block_size == 0``)?"""
+    return cfg.block_interleaved and cfg.dim % cfg.block_size == 0
 
 
 def _warn_interleaved_fallback(model) -> None:
@@ -80,30 +75,31 @@ def fold_in_prep(model, state: MFState):
 
 
 def fold_in_split(model):
-    """Where ``eig`` is on, a bucket of width <= dim / 2 folds in by one
-    exact full-dim Woodbury solve and a wider one by the blockwise sweeps
-    (``common.block_sweep_frozen``): two results, not two roundings, so
-    the split is needed for the Server to equal ``recommend``."""
+    """The width at and below which a bucket folds in by another route
+    (``common.block_sweep_frozen``), or None. Where ``eig`` is on, a
+    bucket of width <= dim / 2 folds in by one exact full-dim Woodbury
+    solve and a wider one by the blockwise sweeps: two results, not two
+    roundings. Otherwise, where ``block_eig`` is on, a bucket of width
+    <= block_size / 2 solves each block by the block-level Woodbury and
+    a wider one directly. The Server splits its batches here to equal
+    ``recommend``."""
     cfg = model.cfg
-    if cfg.block_interleaved or cfg.dim < woodbury.MIN_DIM:
-        return None
-    return cfg.dim // 2
+    if not cfg.block_interleaved and cfg.dim >= woodbury.MIN_DIM:
+        return cfg.dim // 2
+    if cfg.dim % cfg.block_size == 0 and cfg.block_size >= 16:
+        return cfg.block_size // 2
+    return None
 
 
 class IALSpp(Recommender):
     name = "ialspp"
     _stats_order = "post"
 
-    def __init__(self, cfg, num_users, num_items, **kw):
-        check_interleaved(cfg)
-        super().__init__(cfg, num_users, num_items, **kw)
-
     @property
     def _loss_lags_one_epoch(self) -> bool:
-        # In interleaved mode the stored loss would be computed at the
-        # end of the epoch from the carried predictions and not lag.
-        return not (self.cfg.block_interleaved
-                    and self.cfg.dim % self.cfg.block_size == 0)
+        # in interleaved mode the stored loss is computed at the end of
+        # the epoch from the carried predictions: it does not lag
+        return not interleaved(self.cfg)
 
     def _reg_vectors(self, dd: DeviceData):
         return ials_reg_vectors(self.cfg, dd)
@@ -125,6 +121,20 @@ class IALSpp(Recommender):
     def _epoch(self, state: MFState, dd: DeviceData) -> MFState:
         cfg = self.cfg
         _warn_interleaved_fallback(self)
+        if interleaved(cfg):
+            # reference order (ialspp.h:208-261): per block, Step(user)
+            # then Step(item); the loss from the carried predictions, /|H|
+            # as the reference's ComputeUserLoss divides
+            u, v, preds_u = common.block_sweep_interleaved(
+                state.user_emb, state.item_emb, dd.by_user, dd.by_item,
+                self._spec_fn(dd.num_items), self._spec_fn(dd.num_users),
+                bs=cfg.block_size)
+            gram = v.T @ v
+            loss = common.losses_from_preds(
+                preds_u, dd.by_user, u, gram, dd.num_users,
+                cfg.uobs_weight, mean=True, halve=False)
+            return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
+                                 user_loss=loss, steps=state.steps + 1)
         # The reference's end-of-epoch ComputeUserLoss (stats-only) runs
         # at the top of the next epoch, where it shares the user sweep's
         # slab gathers (as in IALS._epoch); the stored user_loss

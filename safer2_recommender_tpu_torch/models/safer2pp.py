@@ -11,16 +11,16 @@
   train      : pd x {z, U block sweep, V block sweep}, V^T V, loss, xi
                (safer2pp.h:288-355; the reference interleaves U/V per
                block, ``models/common.py::block_sweep_frozen`` has the
-               reordering)
+               reordering; ``Config.block_interleaved`` keeps the
+               reference's order, ``common.block_sweep_interleaved``)
   eval       : ``eval_fold_in_epochs`` (8) blockwise fold-in sweeps with
                weight 1 (safer2pp.h:220-286)
 
 The reference's flat prediction/residual cache (safer2pp.h:469-517,
 :504-508) becomes slab-local incremental predictions inside each
 bucket's sweep; the per-user loss (safer2pp.h:611-652) is recomputed
-from the live tables. The reference-order trajectory
-(``Config.block_interleaved`` with ``dim % block_size == 0``) is not
-ported yet (ROADMAP Queue 1 item 12).
+from the live tables, or, in the reference's order, read from the
+carried predictions.
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ from safer2_recommender_tpu_torch.data.dataset import DeviceData, FoldInData
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import MFState
 from safer2_recommender_tpu_torch.models.ialspp import (
-    _warn_interleaved_fallback, check_interleaved, fold_in_prep,
-    fold_in_split)
+    _warn_interleaved_fallback, fold_in_prep, fold_in_split, interleaved)
 from safer2_recommender_tpu_torch.models.safer2 import SAFER2
 from safer2_recommender_tpu_torch.ops import smoothing, woodbury
 
@@ -42,16 +41,11 @@ class SAFER2pp(SAFER2):
 
     name = "safer2pp"
 
-    def __init__(self, cfg, num_users, num_items, **kw):
-        check_interleaved(cfg)
-        super().__init__(cfg, num_users, num_items, **kw)
-
     @property
     def _loss_lags_one_epoch(self) -> bool:
-        # In interleaved mode the stored loss would be computed at the
-        # end of the epoch from the carried predictions and not lag.
-        return not (self.cfg.block_interleaved
-                    and self.cfg.dim % self.cfg.block_size == 0)
+        # in interleaved mode the stored loss is computed at the end of
+        # the iteration from the carried predictions: it does not lag
+        return not interleaved(self.cfg)
 
     def _spec_u(self, dual: torch.Tensor):
         """User-side coefficients (reference safer2pp.h:97-159):
@@ -99,6 +93,27 @@ class SAFER2pp(SAFER2):
             # trailing ComputeXi still runs on the carried loss
             # (safer2pp.h:352-354)
             xi = self._xi(loss, state, xi)
+        if interleaved(cfg):
+            # reference order (safer2pp.h:303-319): per block, StepU then
+            # StepV against live Gramians; the carried predictions give
+            # both the residuals and the end-of-iteration loss, so xi at
+            # t = 0 reads the carried loss
+            for t in range(cfg.pd_iterations):
+                if t == 0:
+                    xi = self._xi(loss, state, xi)
+                dual = smoothing.dual_weight(loss, xi, cfg.bandwidth,
+                                             cfg.use_epanechnikov)
+                u, v, preds_u = common.block_sweep_interleaved(
+                    u, v, dd.by_user, dd.by_item, self._spec_u(dual),
+                    self._spec_v(dd), bs=cfg.block_size,
+                    extra_vec_v=self._norm_dual(dd, dual), g_weight_v=dual)
+                gram = v.T @ v
+                loss = common.losses_from_preds(
+                    preds_u, dd.by_user, u, gram, dd.num_users,
+                    cfg.uobs_weight, mean=True, halve=True)
+            return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
+                                 user_loss=loss, dual_weight=dual, xi=xi,
+                                 steps=state.steps + 1)
         for t in range(cfg.pd_iterations):
             loss, pre = common.gather_and_losses(
                 v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,

@@ -10,8 +10,8 @@ Pad rows carry the out-of-bounds id ``num_rows``: JAX drops writes to
 it and clamps reads of it, torch raises, so every read or write here
 masks or clamps pad rows first. Buckets whose gathered slab would not
 fit in memory ("wide", zipf-head histories) stream through column
-chunks (``wide_assemble``, ``wide_matvec``, ``wide_gram_resid``,
-``wide_obs``); the models never gather them whole.
+chunks (``wide_chunks``, ``wide_assemble``, ``wide_matvec``,
+``wide_gram_resid``, ``wide_obs``); the models never gather them whole.
 """
 
 from __future__ import annotations
@@ -85,12 +85,13 @@ def rowwise_dot(emb: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _wide_chunks(table: torch.Tensor, vec: Optional[torch.Tensor],
+def wide_chunks(table: torch.Tensor, vec: Optional[torch.Tensor],
                  bucket: Bucket) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
                                                    Optional[torch.Tensor]]]:
     """Yield ``(emb [N, W, d] masked, mask [N, W], extra [N, W] or None)``
-    for consecutive column chunks of ``bucket`` (``extra[n, l] =
-    vec[col_ids[n, l]]``, masked). The chunk width is ``WIDE_CHUNK``,
+    for consecutive column chunks of ``bucket``, left to right
+    (``extra[n, l] = vec[col_ids[n, l]]``, masked). The chunk width is
+    ``WIDE_CHUNK``,
     halved until one chunk's gathered slab fits ``WIDE_SLAB_BYTES`` (a
     bucket with dim < width <= WIDE_CHUNK can be wide while one
     full-width chunk would gather the whole slab); the last chunk may be
@@ -124,7 +125,7 @@ def wide_assemble(table: torch.Tensor, bucket: Bucket,
     a = (torch.zeros((n, d, d), dtype=torch.float32, device=table.device)
          if init_a is None else init_a)
     rhs = torch.zeros((n, d), dtype=torch.float32, device=table.device)
-    for emb, mask, wt in _wide_chunks(table, extra_vec, bucket):
+    for emb, mask, wt in wide_chunks(table, extra_vec, bucket):
         wt = mask if wt is None else wt
         if row_coef is not None:
             wt = wt * row_coef[:, None]
@@ -141,7 +142,7 @@ def wide_matvec(table: torch.Tensor, bucket: Bucket, x: torch.Tensor,
     n, d = bucket.n_rows, table.shape[1]
     ax = torch.zeros((n, d), dtype=torch.float32, device=table.device)
     rhs = torch.zeros((n, d), dtype=torch.float32, device=table.device)
-    for emb, mask, wt in _wide_chunks(table, extra_vec, bucket):
+    for emb, mask, wt in wide_chunks(table, extra_vec, bucket):
         wt = mask if wt is None else wt
         p = rowwise_dot(emb, x)
         ax += row_sums(emb, col_weight=wt * p)
@@ -168,7 +169,7 @@ def wide_gram_resid(table: torch.Tensor, bucket: Bucket,
     n, d = bucket.n_rows, table.shape[1]
     s_acc = torch.zeros((n, d, d), dtype=torch.float32, device=table.device)
     r0 = torch.zeros((n, d), dtype=torch.float32, device=table.device)
-    for emb, mask, wt in _wide_chunks(table, extra_vec, bucket):
+    for emb, mask, wt in wide_chunks(table, extra_vec, bucket):
         wt = mask if wt is None else wt
         p = rowwise_dot(emb, x_full)
         s_acc += row_gramians(emb, col_weight=wt)
@@ -181,7 +182,7 @@ def wide_obs(table: torch.Tensor, bucket: Bucket,
     """Streamed per-row ``sum_h (v.u - 1)^2`` for the loss pass."""
     acc = torch.zeros((bucket.n_rows,), dtype=torch.float32,
                       device=table.device)
-    for emb, mask, _ in _wide_chunks(table, None, bucket):
+    for emb, mask, _ in wide_chunks(table, None, bucket):
         p = rowwise_dot(emb, probe_rows)
         acc += (torch.square(p - 1.0) * mask).sum(dim=1)
     return acc

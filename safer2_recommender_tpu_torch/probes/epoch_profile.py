@@ -5,7 +5,9 @@
 For each (workload, model) pair of ``RUNS``: SAFER2 on ML-1M (the
 bundled ``tests/ml-1m`` split at the README config) and on the 50k x 40k
 power-law set at the MSD config of ``bench.py`` (``synth50k``), then
-SAFER2++ (block 64) on the latter; all at dim 512, seeded:
+SAFER2++ (block 64) on the latter, in frozen order and in the
+reference's order (``safer2pp-interleaved``: ``block_interleaved``);
+all at dim 512, seeded:
 
 1. two warm-up epochs;
 2. for SAFER2, the phases of one epoch, each timed from a synchronize to
@@ -44,7 +46,7 @@ from safer2_recommender_tpu_torch.ops import smoothing, woodbury
 DIM = 512
 # (workload, model) pairs profiled, in order; no flags: edit this list
 RUNS = (("ml1m", "safer2"), ("synth50k", "safer2"),
-        ("synth50k", "safer2pp"))
+        ("synth50k", "safer2pp"), ("synth50k", "safer2pp-interleaved"))
 ML1M_TRAIN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "tests", "ml-1m", "train.csv")
@@ -168,7 +170,9 @@ def run() -> Dict[str, dict]:
     for wl, model_name in RUNS:
         name = wl if model_name == "safer2" else f"{wl}-{model_name}"
         ds, dd, cfg = workload(wl, device)
-        model = get_model(model_name, cfg, ds.num_users, ds.num_items,
+        base = model_name.removesuffix("-interleaved")
+        cfg = cfg.replace(block_interleaved=base != model_name)
+        model = get_model(base, cfg, ds.num_users, ds.num_items,
                           device=device)
         model.initialize(dd)
         model.train_epochs(dd, 2)

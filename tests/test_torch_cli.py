@@ -80,8 +80,6 @@ def _refused(argv, capsys):
     (["--mesh", "2"], "item 19"),
     (["--distributed", "1"], "item 19"),
     (["--profile_dir", "prof"], "item 7"),
-    (["--use_cg", "1"], "item 14"),
-    (["--block_interleaved", "1"], "item 12"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys):
     err = _refused(["--model_name", "safer2", "--device", "cpu"] + flags,
@@ -120,12 +118,8 @@ def test_cli_checkpoint_dir_saves_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name,flags,message", [
-    # all six names are accepted; what a ++ model cannot do yet is
-    # refused with its item, an unknown name by the parser
-    ("ialspp", ["--block_interleaved", "1", "--block_size", "4"], "item 12"),
-    ("safer2pp", ["--block_interleaved", "1", "--block_size", "4"],
-     "item 12"),
-    ("ials", ["--use_cg", "1"], "item 14"),
+    # all six names are accepted; an unknown name is refused by the
+    # parser
     ("nope", [], "invalid choice")])
 def test_cli_refuses_unported_models_and_unknown_ones(name, flags, message,
                                                       capsys):
@@ -133,6 +127,52 @@ def test_cli_refuses_unported_models_and_unknown_ones(name, flags, message,
     assert message in err
     from safer2_recommender_tpu_torch import MODEL_REGISTRY, cli
     assert sorted(cli.MODEL_CHOICES) == sorted(MODEL_REGISTRY)
+
+
+@pytest.mark.parametrize("name,flags", [
+    ("safer2", ["--use_cg", "1", "--uobs_weight", "0.004", "--l2_reg",
+                "0.004", "--bandwidth", "0.15"]),
+    ("ials", ["--use_cg", "1", "--uobs_weight", "0.1", "--l2_reg", "0.003"]),
+    ("erm_mf", ["--use_cg", "1", "--uobs_weight", "0.004", "--l2_reg",
+                "0.005"]),
+    ("ialspp", ["--block_interleaved", "1", "--block_size", "4",
+                "--uobs_weight", "0.1", "--l2_reg", "0.003"]),
+    ("safer2pp", ["--block_interleaved", "1", "--block_size", "4",
+                  "--uobs_weight", "0.004", "--l2_reg", "0.004",
+                  "--bandwidth", "0.15"]),
+], ids=["safer2-cg", "ials-cg", "erm_mf-cg", "ialspp-interleaved",
+        "safer2pp-interleaved"])
+def test_cli_runs_cg_and_the_interleaved_order_end_to_end(name, flags,
+                                                          monkeypatch):
+    # --use_cg (the exact models) and --block_interleaved (the ++ models,
+    # dim % block_size == 0) train 2 epochs at dim 8 and evaluate; CG
+    # never reaches the inverse-Cholesky kernel's wrapper, the
+    # interleaved order's block solves do
+    from safer2_recommender_tpu_torch import cli
+    from safer2_recommender_tpu_torch.ops import block_chol
+
+    calls = []
+    wrapper = block_chol.chol_inverse_small
+    monkeypatch.setattr(block_chol, "chol_inverse_small",
+                        lambda a, r: calls.append(1) or wrapper(a, r))
+    torch.set_num_threads(1)
+    res = cli.run(["--model_name", name, "--device", "cpu", "--dim", "8",
+                   "--alpha", "0.3", "--epoch", "2",
+                   "--print_train_stats", "0",
+                   "--train_data", os.path.join(ML1M_DIR, "train.csv"),
+                   "--test_train_data",
+                   os.path.join(ML1M_DIR, "validation_tr.csv"),
+                   "--test_test_data",
+                   os.path.join(ML1M_DIR, "validation_te.csv")] + flags)
+    cfg = res.model.cfg
+    assert cfg.use_cg == ("--use_cg" in flags)
+    assert cfg.block_interleaved == ("--block_interleaved" in flags)
+    assert res.model._loss_lags_one_epoch == cfg.use_cg
+    s = res.model.state
+    assert torch.isfinite(s.user_emb).all() and torch.isfinite(s.item_emb).all()
+    assert len(res.epoch_ms) == 2 and s.steps == 2
+    assert bool(calls) != cfg.use_cg
+    assert float(res.metrics.mean_ndcg()[2]) > 0.1
 
 
 _PREFIX = r"^I\d{4} \d\d:\d\d:\d\d safer2_recommender_tpu_torch\] "

@@ -318,14 +318,19 @@ def test_unported_paths_raise(small):
     with pytest.raises(ValueError, match="unknown model"):
         get_model("nope", Config(), ds.num_users, ds.num_items,
                   device="cpu")
-    # the reference-order ++ sweep is not: refused where it would engage
+    # the reference-order ++ sweep and CG are ported: the models build
+    # where the interleaved order engages, and CG solves
     for name in ("ialspp", "safer2pp"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            get_model(name, Config(dim=8, block_size=4,
-                                   block_interleaved=True), ds.num_users,
-                      ds.num_items, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        solve.solve(torch.eye(8)[None], torch.ones(1, 8), use_cg=True)
+        built = get_model(name, Config(dim=8, block_size=4,
+                                       block_interleaved=True),
+                          ds.num_users, ds.num_items, device="cpu")
+        assert not built._loss_lags_one_epoch
+    for name in ("safer2", "ials", "erm_mf"):
+        built = get_model(name, Config(dim=8, use_cg=True), ds.num_users,
+                          ds.num_items, device="cpu")
+        assert built.cfg.use_cg
+    x = solve.solve(2.0 * torch.eye(8)[None], torch.ones(1, 8), use_cg=True)
+    torch.testing.assert_close(x, torch.full((1, 8), 0.5))
 
 
 @pytest.mark.parametrize("entry", ["get_model", "Recommender",

@@ -36,7 +36,7 @@ Phases, each printing lines to stdout tagged with its name:
      model; ids in range and outside each user's history;
   8. dim64: the same run at dim 64 for 3 epochs (the r = 64 kernel
      path); finite tables and the dual-weight gate;
-  9. dim512: the same run at dim 512 for 5 epochs (Woodbury solves,
+  9. dim512: the same run at dim 512 for 10 epochs (Woodbury solves,
      rotated direct solves, the warm eigh refresh): the quality gates,
      finite tables, rows on the Woodbury and rotated paths, a warm
      refresh, kernel launches at every r, then one recommend() batch of
@@ -115,7 +115,28 @@ Phases, each printing lines to stdout tagged with its name:
      and the most frequent shape of each path (the interleaved paths of
      phases 12 and 17 and the served paths of phases 15 and 16
      included), compared and timed as in phase 3, and
-     compared at every other shape the served paths gave it.
+     compared at every other shape the served paths gave it;
+ 19. bf16 (run between phases 14 and 16): compute_dtype="bf16" beside
+     float32. ML-1M SAFER2 at dim 512, the README config, 10 epochs
+     through the CLI with --compute_dtype bf16 (saving a checkpoint),
+     beside phase 9's float32 run: NDCG@20 >= 0.2 and within
+     BF16_NDCG_TOL of the f32 run, the dual-weight gate every epoch,
+     chol_inverse launches > 0 and equal to the f32 run's, shape for
+     shape; both runs' epoch ms (median after the first), peak memory,
+     rows by path. The 50k workload at the MSD config: SAFER2 and
+     SAFER2++ (frozen, block 64) in bf16 for 2 epochs each (epoch ms,
+     mean dual weight, peak memory, launches), then 2 epochs of each of
+     the four models (f32 models of phases 10 and 14 and the two bf16
+     ones) under torch.profiler: wall ms, device busy share (the union
+     of device intervals, probes/epoch_profile.py) and the top device
+     operations. One 50k item bucket's Gramian and rhs on the card from
+     the bf16 slab: the route ops/assemble.py::gram_route picks (printed)
+     against the plain float32 product of the same bfloat16 operands,
+     within GRAM_REL_TOL of max|plain|. A Server restored from the bf16
+     ML-1M checkpoint, checked and timed as in phase 15 on its batches,
+     then 2 profiled epochs of the f32 and the bf16 ML-1M model.
+     Last, a 2-epoch CLI run (dim 32, bf16) with --profile_dir: the
+     trace file exists and its device kernels include chol_inverse.
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -132,6 +153,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -180,6 +202,16 @@ MSD_ARGS = ["--uobs_weight", "0.0004", "--l2_reg", "0.0012",
             "--alpha", str(ALPHA), "--bandwidth", "0.1", "--use_snr", "1",
             "--sampling_ratio", "0.1"]
 INTERLEAVED = ["--block_interleaved", "1"]
+# phase 9's ML-1M dim-512 run, the float32 side of phase 19's A/B
+DIM512_EPOCHS = 10
+BF16 = ["--compute_dtype", "bf16"]
+# bf16 vs f32 NDCG@20 on ML-1M dim 512: the JAX package's own ablation
+# moved it by 1e-4 at dim 256 (BASELINE.md:183-185)
+BF16_NDCG_TOL = 0.005
+# a bf16 Gramian / rhs by the card's route vs the plain f32 product of
+# the same bf16 operands, of max|plain|: the products are exact in f32,
+# only the summation order (and the tensor cores' f32 adder) differs
+GRAM_REL_TOL = 1e-5
 # ML-1M SAFER2++ at dim 512 in the reference's order: the epochs of the
 # record it is held to (BASELINE.md "Interleaved mode records")
 INTERLEAVED_EPOCHS = 50
@@ -523,7 +555,7 @@ def phase_dim512(cli, block_chol, woodbury):
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
     with recorded_chol_shapes(block_chol) as shapes:
-        res = train(cli, 512, 5)
+        res = train(cli, 512, DIM512_EPOCHS)
     launches = dict(block_chol.LAUNCHES)
     paths = dict(woodbury.SOLVE_PATHS)
     peak = torch.cuda.max_memory_allocated()
@@ -538,7 +570,8 @@ def phase_dim512(cli, block_chol, woodbury):
     check(paths["refresh_warm"] > 0, f"dim 512: no warm refresh: {paths}")
     check(all(launches[r] > 0 for r in block_chol.KERNEL_SIZES),
           f"dim 512: no kernel launch at some r: {launches}")
-    say("dim512", f"ML-1M SAFER2 dim 512, 5 epochs: NDCG@20 {ndcg20:.4f} "
+    say("dim512", f"ML-1M SAFER2 dim 512, {DIM512_EPOCHS} epochs: NDCG@20 "
+        f"{ndcg20:.4f} "
         f"(gate {NDCG20_MIN}); mean dual weight "
         f"{[round(w, 4) for w in res.mean_weights]}; epoch ms "
         f"{res.epoch_ms}; solve paths (padded rows; refreshes) {paths}; "
@@ -1181,10 +1214,9 @@ def describe_served(r) -> str:
             f"{r['launches']}, per capture {r['per_capture']}")
 
 
-def phase_server(trained, ckpt_dirs, block_chol, device):
-    """Each ML-1M model restored from its CLI checkpoint into a fresh
-    model and served by a Server over SERVE_BATCHES batches of held-out
-    users, checked against the trained model's recommend()."""
+def server_batches():
+    """Phase 15's requests: SERVE_BATCHES batches of 1-1,000 held-out
+    ML-1M users (sizes from SERVE_SEED) and one batch of 64."""
     import numpy as np
 
     from safer2_recommender_tpu_torch.data.dataset import Dataset
@@ -1194,7 +1226,14 @@ def phase_server(trained, ckpt_dirs, block_chol, device):
     n_users = np.unique(hist.user_ids).size
     sizes = rng.integers(1, min(1024, n_users) + 1, SERVE_BATCHES)
     batches = user_batches(hist, rng, sizes)
-    b64 = user_batches(hist, rng, [64])[0]
+    return batches, user_batches(hist, rng, [64])[0]
+
+
+def phase_server(trained, ckpt_dirs, block_chol, device):
+    """Each ML-1M model restored from its CLI checkpoint into a fresh
+    model and served by a Server over SERVE_BATCHES batches of held-out
+    users, checked against the trained model's recommend()."""
+    batches, b64 = server_batches()
     out = {}
     for name, model in trained.items():
         fresh, epoch = restore_fresh(model, ckpt_dirs[name])
@@ -1208,6 +1247,220 @@ def phase_server(trained, ckpt_dirs, block_chol, device):
             f"graphs)")
         out[name] = r
     return out
+
+
+def run_facts(res, launches, shapes, paths, peak):
+    """What phase 19 compares of one ML-1M dim-512 CLI run."""
+    return dict(ndcg20=float(res.metrics.mean_ndcg()[2]),
+                epoch_ms=res.epoch_ms, median_ms=median(res.epoch_ms[1:]),
+                mean_weights=res.mean_weights, launches=launches,
+                shapes=sorted(shapes), paths=paths, peak_bytes=peak)
+
+
+def phase_bf16_ml1m(cli, block_chol, woodbury, f32, ckpt):
+    """ML-1M SAFER2 at dim 512 with --compute_dtype bf16 through the CLI,
+    beside phase 9's float32 run ``f32`` (``run_facts``): the quality
+    gates, and the same kernel launches, shape for shape."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    block_chol.reset_launches()
+    woodbury.reset_solve_paths()
+    with recorded_chol_shapes(block_chol) as shapes:
+        res = train(cli, 512, DIM512_EPOCHS, README_ARGS + BF16, ckpt=ckpt)
+    bf = run_facts(res, dict(block_chol.LAUNCHES), shapes,
+                   dict(woodbury.SOLVE_PATHS),
+                   torch.cuda.max_memory_allocated())
+    check(res.model.asm_dtype == torch.bfloat16, "bf16: not a bf16 model")
+    check(finite_tables(res.model.state), "bf16 dim 512: nonfinite tables")
+    check(bf["ndcg20"] >= NDCG20_MIN,
+          f"bf16 dim 512: NDCG@20 {bf['ndcg20']} < {NDCG20_MIN}")
+    check(abs(bf["ndcg20"] - f32["ndcg20"]) <= BF16_NDCG_TOL,
+          f"bf16 dim 512: NDCG@20 {bf['ndcg20']} is more than "
+          f"{BF16_NDCG_TOL} from the f32 run's {f32['ndcg20']}")
+    check_dual(res, "bf16 dim 512")
+    check(sum(bf["launches"].values()) > 0, "bf16 dim 512: no kernel launch")
+    check(bf["launches"] == f32["launches"] and bf["shapes"] == f32["shapes"],
+          f"bf16 dim 512: kernel launches by r {bf['launches']} differ from "
+          f"the f32 run's {f32['launches']} (or their shapes do)")
+    for tag, r in (("f32", f32), ("bf16", bf)):
+        say("bf16", f"ML-1M SAFER2 dim 512 {tag}, {DIM512_EPOCHS} epochs: "
+            f"NDCG@20 {r['ndcg20']:.4f}; epoch ms {r['epoch_ms']} (median "
+            f"after the first {r['median_ms']}); mean dual weight "
+            f"{[round(w, 4) for w in r['mean_weights']]}; peak device memory "
+            f"{r['peak_bytes']} B; solve paths (padded rows; refreshes) "
+            f"{r['paths']}; kernel launches by r {r['launches']}")
+    say("bf16", f"NDCG@20 bf16 - f32 {bf['ndcg20'] - f32['ndcg20']:+.4f} "
+        f"(tol {BF16_NDCG_TOL}); the same {len(bf['shapes'])} kernel "
+        f"launches, shape for shape")
+    del bf["shapes"]
+    return bf, res.model
+
+
+def phase_bf16_gram(model, dd, device):
+    """One 50k item bucket's bf16 Gramian and rhs on the card (the
+    largest bucket that is not streamed), by the route gram_route picks,
+    against the plain f32 product of the same operands (the weighted
+    operand as ``assemble.weight_operand`` forms it for that route); the
+    model's user table and dual weights are the operands. Also reported:
+    how far the rounded weighted operand moves the Gramian from the exact
+    weighted product the CPU route uses."""
+    import torch
+
+    from safer2_recommender_tpu_torch.ops import assemble
+    from safer2_recommender_tpu_torch.probes import cuda_ms
+    from safer2_recommender_tpu_torch.utils.device import f32_matmul
+
+    dim = model.cfg.dim
+    b = max((b for b in dd.by_item if not assemble.is_wide(b, dim)),
+            key=lambda b: b.n_rows * b.width)
+    norm_dual = model._norm_dual(dd, model.state.dual_weight)
+    bf = torch.bfloat16
+    with f32_matmul():
+        emb, _, wt = assemble.gather_history_extra(model.state.user_emb,
+                                                   norm_dual, b, bf)
+        # the weighted operand the route multiplies: bfloat16 on the
+        # "out_dtype" route, the exact product on the "upcast" one
+        lhs = assemble.weight_operand(emb, wt[..., None])
+        got_a = assemble.row_gramians(emb, wt)
+        got_r = assemble.row_sums(emb, wt)
+        want_a = torch.bmm(lhs.float().transpose(1, 2), emb.float())
+        want_r = (emb * wt[..., None].to(bf)).float().sum(dim=1)
+        exact = torch.bmm((emb.float() * wt[..., None].to(bf).float())
+                          .transpose(1, 2), emb.float())
+        rounded = torch.bmm((emb * wt[..., None].to(bf)).float()
+                            .transpose(1, 2), emb.float())
+        route = assemble.gram_route(device)
+        ms = dict(
+            route=cuda_ms(lambda: assemble.row_gramians(emb, wt)),
+            plain_f32=cuda_ms(lambda: torch.bmm(
+                lhs.float().transpose(1, 2), emb.float())),
+            f32_slab=cuda_ms(lambda: assemble.row_gramians(
+                emb.float(), wt)))
+    torch.cuda.synchronize()
+    err_a = float((got_a - want_a).abs().max() / want_a.abs().max())
+    err_r = float((got_r - want_r).abs().max() / want_r.abs().max())
+    moved = float((rounded - exact).abs().max() / exact.abs().max())
+    check(got_a.dtype == got_r.dtype == torch.float32,
+          "bf16 gram: not float32 out")
+    check(err_a <= GRAM_REL_TOL and err_r <= GRAM_REL_TOL,
+          f"bf16 gram: route {route} off the plain f32 product by "
+          f"{err_a:.3e} (Gramian) / {err_r:.3e} (rhs) > {GRAM_REL_TOL}")
+    say("bf16", f"route {route}: the Gramian and rhs of the 50k item bucket "
+        f"[{b.n_rows}, {b.width}, {dim}] from the bf16 slab, against the "
+        f"plain f32 product of the same operands: rel err "
+        f"{err_a:.3e} / {err_r:.3e} of max|plain| (tol {GRAM_REL_TOL:g}); "
+        f"rounding the weighted operand to bfloat16 moves the Gramian "
+        f"{moved:.3e} of max from the exact weighted product; ms per "
+        f"Gramian: route {ms['route']:.4f}, plain f32 of the operands "
+        f"{ms['plain_f32']:.4f}, the f32 path's own {ms['f32_slab']:.4f} "
+        f"(CUDA events)")
+    return dict(route=route, bucket=[b.n_rows, b.width, dim],
+                gram_rel_err=err_a, rhs_rel_err=err_r,
+                rounded_operand_moves=moved, ms=ms)
+
+
+def phase_bf16_synth(block_chol, woodbury, device, workload, f32_models,
+                     f32_ms):
+    """The 50k workload (MSD config, dim 512) in bf16: SAFER2 and SAFER2++
+    (frozen, block 64) through the library API, initialize + 2 epochs
+    each, then 2 profiled epochs of each of them and of the f32 models
+    of phases 10 and 14 (``f32_models``; ``f32_ms`` their epoch ms)."""
+    import torch
+
+    from safer2_recommender_tpu_torch import get_model
+
+    ds, dd, cfg = workload
+    out, models = {}, {}
+    for name in ("safer2", "safer2pp"):
+        model = get_model(name, cfg.replace(compute_dtype="bf16"),
+                          ds.num_users, ds.num_items, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        block_chol.reset_launches()
+        woodbury.reset_solve_paths()
+        epoch_ms, weights = [], []
+        model.initialize(dd)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.train_epoch(dd)
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t1) * 1000)
+            weights.append(model.get_mean_weight())
+        r = dict(epoch_ms=epoch_ms, mean_weights=weights,
+                 launches=dict(block_chol.LAUNCHES),
+                 paths=dict(woodbury.SOLVE_PATHS),
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        check(finite_tables(model.state), f"bf16 50k {name}: nonfinite")
+        check(sum(r["launches"].values()) > 0,
+              f"bf16 50k {name}: no kernel launch")
+        check(r["paths"]["wide"] > 0, f"bf16 50k {name}: no wide rows")
+        say("bf16", f"50k {name} dim 512 bf16: epoch ms {epoch_ms} (f32 "
+            f"{[round(t, 1) for t in f32_ms[name]]}); mean dual weight "
+            f"{weights}; peak device memory {r['peak_bytes']} B; solve "
+            f"paths {r['paths']}; kernel launches by r {r['launches']}")
+        out[name] = r
+        models[name] = model
+    out["profile"] = {}
+    for name in ("safer2", "safer2pp"):
+        out["profile"].update(profile_pair(
+            f"50k {name}", {"f32": f32_models[name], "bf16": models[name]},
+            dd))
+    return out, models
+
+
+def profile_pair(tag, models, dd):
+    """Two more epochs of each of ``models`` ({"f32": model, "bf16":
+    model}) under torch.profiler (probes/epoch_profile.py): wall ms,
+    device busy ms (the union of device intervals), its share, the top
+    device operations."""
+    from safer2_recommender_tpu_torch.probes import epoch_profile
+
+    out = {}
+    for dt, model in models.items():
+        wall, busy, ranked, chol = epoch_profile.profile_epochs(model, dd)
+        say("bf16", f"{tag} {dt}, 2 epochs under torch.profiler: wall "
+            f"{wall:.1f} ms, device busy {busy:.1f} ms "
+            f"({100 * busy / wall:.1f}%); chol_inverse "
+            f"{sum(c[0] for c in chol):.2f} ms in "
+            f"{sum(c[1] for c in chol)} launches; top device ops "
+            + "; ".join(f"{ms:.1f} ms x {n} {op[:60]}"
+                        for ms, n, op in ranked[:6]))
+        out[f"{tag} {dt}"] = dict(
+            wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+            top=[dict(ms=ms, count=n, name=op[:120]) for ms, n, op in ranked])
+    return out
+
+
+def phase_profile_dir(cli, block_chol, trace_root):
+    """A 2-epoch CLI run (ML-1M, dim 32, README config, bf16) with
+    --profile_dir: one trace file, whose device kernels include the
+    inverse-Cholesky kernel."""
+    import glob
+
+    prof = os.path.join(trace_root, "profile")
+    block_chol.reset_launches()
+    train(cli, 32, 2, README_ARGS + BF16 + ["--profile_dir", prof])
+    launches = block_chol.total_launches()
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile_dir: trace files {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    chol = [e for e in kernels if "chol_inverse" in e.get("name", "")]
+    check(bool(chol), f"--profile_dir: no chol_inverse kernel among the "
+          f"trace's {len(kernels)} device kernels")
+    names = sorted({re.search(r"chol_inverse\w*(<\d+>)?", e["name"])[0]
+                    for e in chol})
+    say("bf16", f"--profile_dir: {os.path.basename(traces[0])}, "
+        f"{os.path.getsize(traces[0])} B, {len(events)} events, "
+        f"{len(kernels)} device kernels, {len(chol)} of them chol_inverse "
+        f"({names}); kernel "
+        f"launches of the run {launches}")
+    return dict(trace_bytes=os.path.getsize(traces[0]),
+                kernels=len(kernels), chol_inverse_kernels=len(chol),
+                launches=launches)
 
 
 def phase_server50k(models, ds, block_chol, device):
@@ -1337,8 +1590,16 @@ def run_phases(device, ckpt_root: str) -> None:
     d512 = phase_dim512(cli, block_chol, woodbury)
     check(d512["serve_launches"] > 0,
           "dim512 serve: the kernel was never launched")
-    ndcg512 = float(d512.pop("res").metrics.mean_ndcg()[2])
+    res512 = d512.pop("res")
+    ndcg512 = float(res512.metrics.mean_ndcg()[2])
     shapes512 = d512.pop("shapes")
+    bf16_ml1m, bf16_model = phase_bf16_ml1m(
+        cli, block_chol, woodbury,
+        run_facts(res512, d512["launches"], shapes512, d512["paths"],
+                  d512["peak_bytes"]),
+        os.path.join(ckpt_root, "safer2_bf16"))
+    f32_model512 = res512.model
+    del res512
 
     from safer2_recommender_tpu_torch.probes import epoch_profile
 
@@ -1364,6 +1625,28 @@ def run_phases(device, ckpt_root: str) -> None:
             for r in block_chol.KERNEL_SIZES}
     synth_models = phase_synth_models(block_chol, woodbury, device, workload,
                                       wave)
+    bf16_synth, bf16_models = phase_bf16_synth(
+        block_chol, woodbury, device, workload,
+        {"safer2": synth["model"],
+         "safer2pp": synth_models["safer2pp"]["model"]},
+        {"safer2": synth["epoch_ms"],
+         "safer2pp": synth_models["safer2pp"]["epoch_ms"]})
+    bf16_gram = phase_bf16_gram(bf16_models["safer2"], workload[1], device)
+    del bf16_models
+    batches, b64 = server_batches()
+    fresh, epoch = restore_fresh(bf16_model,
+                                 os.path.join(ckpt_root, "safer2_bf16"))
+    bf16_server = serve_model("server bf16", bf16_model, fresh, batches, b64,
+                              block_chol, device)
+    bf16_server["restored_epoch"] = epoch
+    say("bf16", f"ML-1M SAFER2 dim 512 bf16, restored at epoch {epoch}: "
+        + describe_served(bf16_server))
+    bf16_ml1m["profile"] = profile_pair(
+        "ML-1M safer2 dim 512", {"f32": f32_model512, "bf16": bf16_model},
+        epoch_profile.workload("ml1m", device)[1])
+    del fresh, bf16_model, f32_model512, batches, b64
+    release_graphs()
+    bf16_profile = phase_profile_dir(cli, block_chol, ckpt_root)
     server50k = phase_server50k(
         {"safer2": synth.pop("model"),
          "safer2pp": synth_models["safer2pp"].pop("model")},
@@ -1406,6 +1689,7 @@ def run_phases(device, ckpt_root: str) -> None:
                               for sh in r.pop("shapes")]}
     for name, r in server50k.items():
         served[f"server50k_{name}"] = r.pop("shapes")
+    served["server_ml1m_dim512_bf16"] = bf16_server.pop("shapes")
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
         "most_frequent_ml1m_dim512": most_frequent(shapes512),
@@ -1462,7 +1746,11 @@ def run_phases(device, ckpt_root: str) -> None:
                      + sum(inter50k["launches"].values())
                      + sum(sum(r["launches"].values())
                            for r in list(server.values())
-                           + list(server50k.values()))),
+                           + list(server50k.values()) + [bf16_server])
+                     + sum(bf16_ml1m["launches"].values())
+                     + sum(sum(r["launches"].values())
+                           for k, r in bf16_synth.items() if k != "profile")
+                     + bf16_profile["launches"]),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
                            + [v["max_abs_err"] for v in main_t.values()]
                            + [served_err]),
@@ -1505,7 +1793,17 @@ def run_phases(device, ckpt_root: str) -> None:
             "server50k": {
                 n: dict(launches=r["launches"], per_capture=r["per_capture"],
                         graphs=r["graphs"], replays=r["replays"])
-                for n, r in server50k.items()}},
+                for n, r in server50k.items()},
+            "bf16": {
+                "ml1m_dim512": bf16_ml1m["launches"],
+                "synth50k": {n: r["launches"] for n, r in bf16_synth.items()
+                             if n != "profile"},
+                "server_ml1m_dim512": dict(
+                    launches=bf16_server["launches"],
+                    per_capture=bf16_server["per_capture"],
+                    graphs=bf16_server["graphs"],
+                    replays=bf16_server["replays"]),
+                "profile_dir_run": bf16_profile["launches"]}},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
@@ -1519,6 +1817,9 @@ def run_phases(device, ckpt_root: str) -> None:
         "ml1m_cg": cg,
         "server_ml1m": server,
         "server50k": server50k,
+        "bf16": dict(ml1m_dim512=bf16_ml1m, synth50k=bf16_synth,
+                     gram=bf16_gram, server_ml1m_dim512=bf16_server,
+                     profile_dir=bf16_profile),
     }, {
         "name": "bdot",
         "route": "cuda",

@@ -13,15 +13,21 @@ All six models run (``ials``, ``ialspp``, ``erm_mf``, ``cvar_mf``,
 ``safer2``, ``safer2pp``), and the log lines are the JAX CLI's.
 ``--checkpoint_dir`` resumes from the newest checkpoint there (with its
 id sidecar) and saves every ``--checkpoint_every`` epochs and at the
-end. ``--device`` (default ``cuda``) picks
-the device; a missing CUDA device is an error, never a silent switch to
-the CPU. Flags of features not ported yet are refused with the ROADMAP
-item that ports them.
+end. ``--compute_dtype bf16`` assembles the normal equations from
+bfloat16 history slabs (``"auto"`` is float32 in the port).
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of the training
+loop (CPU activity, and CUDA activity on the card) under DIR as
+``<host>_<pid>.<ns>.pt.trace.json``, a Chrome trace (chrome://tracing,
+Perfetto, TensorBoard's profiler plugin). ``--device`` (default
+``cuda``) picks the device; a missing CUDA device is an error, never a
+silent switch to the CPU. Flags of features not ported yet (``--mesh``,
+``--distributed``) are refused with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 from typing import List, Optional
@@ -44,7 +50,6 @@ MODEL_CHOICES = ("ials", "ialspp", "safer2", "safer2pp", "cvar_mf",
 _NOT_PORTED = {
     "--mesh": (lambda a: a.mesh != 0, 19),
     "--distributed": (lambda a: a.distributed != 0, 19),
-    "--profile_dir": (lambda a: a.profile_dir is not None, 7),
 }
 
 
@@ -100,19 +105,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block_interleaved", type=int, default=0)
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--checkpoint_every", type=int, default=0)
-    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the training loop "
+                        "under this directory (the reference only has "
+                        "wall-clock timers, run_model.cc:258-266)")
     p.add_argument("--epochs_per_dispatch", type=int, default=1,
                    help="train this many epochs between log lines (>1 "
                         "skips the per-epoch stats lines)")
     p.add_argument("--compute_dtype", choices=("auto", "f32", "bf16"),
                    default="auto",
-                   help="normal-equation assembly dtype; the port computes "
-                        "in f32 ('bf16' is not ported yet)")
+                   help="normal-equation assembly dtype: 'bf16' gathers "
+                        "the history slabs in bfloat16 and accumulates in "
+                        "f32; 'auto' is 'f32' in the port")
     # addition of the port
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to run on (default cuda; fails when "
                         "CUDA is absent rather than fall back to the CPU)")
     return p
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str], device):
+    """A ``torch.profiler`` trace of the body (CPU activity, and CUDA
+    activity on the card) written under ``profile_dir`` when the body
+    ends; nothing when ``profile_dir`` is None."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
 
 
 @dataclasses.dataclass
@@ -219,27 +247,31 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
     step = max(1, args.epochs_per_dispatch)
     epoch_ms, mean_weights = [], []
     epoch = last_saved = start_epoch
-    while epoch < cfg.epochs:
-        n = min(step, cfg.epochs - epoch)
-        if ckpt is not None and args.checkpoint_every:
-            # land a dispatch boundary on every checkpoint multiple
-            k = args.checkpoint_every
-            n = min(n, k - epoch % k)
-        with Timer(device) as t:
-            if n == 1:
-                model.train_epoch(dd)
-            else:
-                model.train_epochs(dd, n)
-        log.info("Epoch: %d, Timer: Train=%d", epoch + n - 1, t.ms // n)
-        epoch_ms.append(t.ms // n)
-        mean_weights.append(model.get_mean_weight())
-        if args.print_evaluation_stats:
-            evaluate(epoch + n - 1)
-        if ckpt is not None and args.checkpoint_every and (
-                (epoch + n) % args.checkpoint_every == 0):
-            save(epoch + n)
-            last_saved = epoch + n
-        epoch += n
+    with profiled(args.profile_dir, device):
+        while epoch < cfg.epochs:
+            n = min(step, cfg.epochs - epoch)
+            if ckpt is not None and args.checkpoint_every:
+                # land a dispatch boundary on every checkpoint multiple
+                k = args.checkpoint_every
+                n = min(n, k - epoch % k)
+            with Timer(device) as t:
+                if n == 1:
+                    model.train_epoch(dd)
+                else:
+                    model.train_epochs(dd, n)
+            log.info("Epoch: %d, Timer: Train=%d", epoch + n - 1, t.ms // n)
+            epoch_ms.append(t.ms // n)
+            mean_weights.append(model.get_mean_weight())
+            if args.print_evaluation_stats:
+                evaluate(epoch + n - 1)
+            if ckpt is not None and args.checkpoint_every and (
+                    (epoch + n) % args.checkpoint_every == 0):
+                save(epoch + n)
+                last_saved = epoch + n
+            epoch += n
+    if args.profile_dir is not None:
+        log.info("Profile trace of the training loop written under %s",
+                 args.profile_dir)
 
     # persist the final state: --checkpoint_every may not divide --epoch
     # (or may be unset while --checkpoint_dir is given)

@@ -7,8 +7,7 @@ tools/run_model.cc:129-231) so a user of the reference can port commands
 1:1. Defaults equal the reference defaults.
 
 Every field of the JAX package's Config is here, so its values carry
-over unchanged; ``compute_dtype="bf16"`` raises ``NotImplementedError``
-(ROADMAP Queue 1 item 8).
+over unchanged.
 """
 
 from __future__ import annotations
@@ -56,9 +55,13 @@ class Config:
     use_epanechnikov: bool = False
     use_snr: bool = False
     use_cg: bool = False
-    # History-embedding dtype for normal-equation assembly. The port
-    # computes in float32 under "auto" and "f32"; "bf16" raises until an
-    # f32-vs-bf16 quality A/B on the GPU exists (ROADMAP Queue 1 item 8).
+    # History-embedding dtype for normal-equation assembly. "bf16"
+    # gathers the history slabs in bfloat16 and accumulates their
+    # products in float32, rounding where the JAX package rounds; the
+    # tables, systems and solves stay float32. "f32" assembles in
+    # float32. "auto" is "f32" in the port, bit for bit (the JAX package
+    # picks bfloat16 on a TPU): choosing bfloat16 for it on the card
+    # waits for an f32-vs-bf16 A/B on a benchmark cell (ROADMAP item 8).
     compute_dtype: str = "auto"   # "auto" | "f32" | "bf16"
     cg_error_tolerance: float = 1e-10
     cg_max_iterations: int = 100

@@ -64,17 +64,11 @@ def _read_csv_native(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
 
 
 def _read_csv_python(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    try:
-        import pandas as pd
-
-        df = pd.read_csv(path, dtype=np.int32)
-        cols = df.columns
-        return (df[cols[0]].to_numpy(np.int32),
-                df[cols[1]].to_numpy(np.int32))
-    except ImportError:
-        arr = np.loadtxt(path, dtype=np.int32, delimiter=",", skiprows=1,
-                         ndmin=2)
-        return arr[:, 0].astype(np.int32), arr[:, 1].astype(np.int32)
+    """numpy's reader (a ``.gz`` path is decompressed on the fly); the
+    port needs no pandas."""
+    arr = np.loadtxt(path, dtype=np.int32, delimiter=",", skiprows=1,
+                     ndmin=2, usecols=(0, 1))
+    return arr[:, 0].copy(), arr[:, 1].copy()
 
 
 class Dataset:
@@ -110,7 +104,7 @@ class Dataset:
     def from_csv(cls, path: str) -> "Dataset":
         """Read a 2-column uid,sid CSV (header discarded). A missing
         ``foo.csv`` falls back to ``foo.csv.gz`` (the bundled ML-1M
-        fixture ships gzipped), read through pandas or numpy."""
+        fixture ships gzipped), read through numpy."""
         if not os.path.exists(path) and os.path.exists(path + ".gz"):
             return cls(*_read_csv_python(path + ".gz"))
         out = _read_csv_native(path)

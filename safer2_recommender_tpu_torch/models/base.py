@@ -28,7 +28,7 @@ from safer2_recommender_tpu_torch.evaluation.metrics import (
     topk_metrics,
 )
 from safer2_recommender_tpu_torch.models import common
-from safer2_recommender_tpu_torch.ops import woodbury
+from safer2_recommender_tpu_torch.ops import assemble, woodbury
 from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
                                                        f32_matmul,
                                                        matmul_precision,
@@ -37,9 +37,7 @@ from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
 
-BF16_NOT_PORTED = (
-    "compute_dtype='bf16': the port assembles in float32 until an "
-    "f32-vs-bf16 quality A/B on the GPU exists (ROADMAP Queue 1 item 8)")
+ASM_DTYPES = {"auto": None, "f32": None, "bf16": torch.bfloat16}
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -87,9 +85,13 @@ class Recommender:
 
     def __init__(self, cfg: Config, num_users: int, num_items: int,
                  device=DEFAULT_DEVICE):
-        if cfg.compute_dtype not in ("auto", "f32"):
-            raise NotImplementedError(BF16_NOT_PORTED)
+        if cfg.compute_dtype not in ASM_DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: choose "
+                             f"from {sorted(ASM_DTYPES)}")
         self.cfg = cfg
+        # the history slabs' assembly dtype (None: the tables' float32);
+        # "auto" is float32 in the port (config.py)
+        self.asm_dtype = ASM_DTYPES[cfg.compute_dtype]
         self.num_users = num_users
         self.num_items = num_items
         self.device = resolve_device(device)
@@ -565,7 +567,8 @@ class SaferFamilyMixin:
         s = self.state
         loss = common.user_losses(s.user_emb, s.item_emb, s.item_gramian,
                                   dd.by_user, dd.num_users,
-                                  self.cfg.uobs_weight, halve=True)
+                                  self.cfg.uobs_weight, halve=True,
+                                  dtype=self.asm_dtype)
         self.state = s.replace(user_loss=loss, **kw)
 
     @staticmethod
@@ -588,12 +591,13 @@ class SaferFamilyMixin:
             eig = woodbury.maybe_eigh(gramian, cfg.dim, use_cg=cfg.use_cg,
                                       q_prev=q_prev,
                                       refresh_tol=cfg.eig_refresh_tol)
+        item_emb = assemble.cast(item_emb, self.asm_dtype)  # once a sweep
 
         def params_fn(b, pre=None):
             w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
             return common.params_weighted_mean(
                 item_emb, b, torch.full((b.n_rows,), reg, device=ue.device),
-                cfg.uobs_weight, w, pre=pre)
+                cfg.uobs_weight, w, dtype=self.asm_dtype, pre=pre)
 
         out = common.solve_sweep(ue, buckets, params_fn, gramian, eig=eig,
                                  use_cg=cfg.use_cg,
@@ -613,11 +617,13 @@ class SaferFamilyMixin:
         eig = woodbury.maybe_eigh(w_gram, cfg.dim, use_cg=cfg.use_cg,
                                   q_prev=q_prev,
                                   refresh_tol=cfg.eig_refresh_tol)
+        user_emb = assemble.cast(user_emb, self.asm_dtype)  # once a sweep
 
         def params_fn(b, pre=None):
             reg = self._item_reg(dd.item_reg, b.row_ids)
             return common.params_weighted_item(
-                user_emb, b, reg, cfg.uobs_weight, norm_dual)
+                user_emb, b, reg, cfg.uobs_weight, norm_dual,
+                dtype=self.asm_dtype)
 
         out = common.solve_sweep(v, dd.by_item, params_fn, w_gram, eig=eig,
                                  use_cg=cfg.use_cg,

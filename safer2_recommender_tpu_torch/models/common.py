@@ -11,7 +11,10 @@ embedding rows. Conventions:
   * ``gram`` is the global Gramian of the frozen side (possibly
     dual-weighted), computed once per sweep;
   * returned row blocks are [N, ...]; pad rows produce values that the
-    write-back discards.
+    write-back discards;
+  * ``dtype`` (None or ``torch.bfloat16``, the model's ``asm_dtype``) is
+    the history slabs' assembly dtype (``ops/assemble.py``); tables,
+    Gramians, systems and solutions stay float32.
 
 The JAX package's XLA scheduling devices (``zero_token``,
 ``tie_bucket``, ``BucketStack`` scans) have no counterpart: PyTorch
@@ -94,7 +97,7 @@ def assemble_rotated(p: SolveParams, eig) -> Tuple[torch.Tensor,
     Returns (a_rot, rhs_rot, ridge [N, d]).
     """
     q, lam = eig
-    emb_rot = p.emb @ q
+    emb_rot = assemble.matmul_lowp(p.emb, q)   # in the slab's dtype
     a = assemble.row_gramians(emb_rot, col_weight=p.wt)
     rhs = assemble.row_sums(emb_rot, col_weight=p.r)
     ridge = p.c0[:, None] + p.c1[:, None] * lam[None, :]
@@ -226,8 +229,14 @@ def sweep_apply(buckets: Sequence[Bucket], pre_list, carry, body):
     return carry
 
 
+def _wide_hist(table_other, bucket, dtype, row_coef=None, extra_vec=None):
+    return woodbury.WideHist(table=assemble.cast(table_other, dtype),
+                             bucket=bucket, row_coef=row_coef,
+                             extra_vec=extra_vec)
+
+
 def params_ials(table_other: torch.Tensor, bucket: Bucket,
-                reg_rows: torch.Tensor, uobs: float,
+                reg_rows: torch.Tensor, uobs: float, dtype=None,
                 pre=None) -> SolveParams:
     """iALS normal equations (reference ials.h:88-144):
 
@@ -237,16 +246,14 @@ def params_ials(table_other: torch.Tensor, bucket: Bucket,
                     device=table_other.device)
     if pre is None and assemble.is_wide(bucket, table_other.shape[1]):
         return SolveParams(emb=None, wt=None, r=None, c0=reg_rows, c1=c1,
-                           wide=woodbury.WideHist(table_other, bucket,
-                                                  row_coef=None,
-                                                  extra_vec=None))
-    emb, mask = pre or assemble.gather_history(table_other, bucket)
+                           wide=_wide_hist(table_other, bucket, dtype))
+    emb, mask = pre or assemble.gather_history(table_other, bucket, dtype)
     return SolveParams(emb=emb, wt=mask, r=mask, c0=reg_rows, c1=c1)
 
 
 def params_weighted_mean(table_other: torch.Tensor, bucket: Bucket,
                          reg_rows: torch.Tensor, uobs: float,
-                         row_weight: torch.Tensor,
+                         row_weight: torch.Tensor, dtype=None,
                          pre=None) -> SolveParams:
     """SAFER-family user-side system (reference safer2.h:104-163,
     erm_mf.h:91-151):
@@ -258,10 +265,9 @@ def params_weighted_mean(table_other: torch.Tensor, bucket: Bucket,
     if pre is None and assemble.is_wide(bucket, table_other.shape[1]):
         return SolveParams(emb=None, wt=None, r=None, c0=reg_rows,
                            c1=row_weight * uobs,
-                           wide=woodbury.WideHist(table_other, bucket,
-                                                  row_coef=coef,
-                                                  extra_vec=None))
-    emb, mask = pre or assemble.gather_history(table_other, bucket)
+                           wide=_wide_hist(table_other, bucket, dtype,
+                                           row_coef=coef))
+    emb, mask = pre or assemble.gather_history(table_other, bucket, dtype)
     wt = coef[:, None] * mask
     return SolveParams(emb=emb, wt=wt, r=wt, c0=reg_rows,
                        c1=row_weight * uobs)
@@ -269,7 +275,7 @@ def params_weighted_mean(table_other: torch.Tensor, bucket: Bucket,
 
 def params_weighted_item(table_other: torch.Tensor, bucket: Bucket,
                          reg_rows: torch.Tensor, uobs: float,
-                         norm_dual: torch.Tensor) -> SolveParams:
+                         norm_dual: torch.Tensor, dtype=None) -> SolveParams:
     """SAFER-family item-side system (reference safer2.h:166-221,
     erm_mf.h:153-210), against the dual-weighted Gramian U^T diag(z) U:
 
@@ -280,11 +286,10 @@ def params_weighted_item(table_other: torch.Tensor, bucket: Bucket,
                     device=table_other.device)
     if assemble.is_wide(bucket, table_other.shape[1]):
         return SolveParams(emb=None, wt=None, r=None, c0=reg_rows, c1=c1,
-                           wide=woodbury.WideHist(table_other, bucket,
-                                                  row_coef=None,
-                                                  extra_vec=norm_dual))
+                           wide=_wide_hist(table_other, bucket, dtype,
+                                           extra_vec=norm_dual))
     emb, _, wt = assemble.gather_history_extra(table_other, norm_dual,
-                                               bucket)
+                                               bucket, dtype)
     return SolveParams(emb=emb, wt=wt, r=wt, c0=reg_rows, c1=c1)
 
 
@@ -328,7 +333,7 @@ def block_eigh(gram: torch.Tensor, bs: int
 
 def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
                        buckets: Sequence[Bucket], gram: torch.Tensor,
-                       spec_fn, *, bs: int, n_sweeps: int = 1,
+                       spec_fn, *, bs: int, n_sweeps: int = 1, dtype=None,
                        extra_vec: Optional[torch.Tensor] = None, eig=None,
                        block_eig=None, pre_list=None) -> torch.Tensor:
     """Blockwise coordinate sweep(s) of one side against the FROZEN other
@@ -352,7 +357,8 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
     the SAFER2++ item sweep): each block's G_loc / G_lg is a slice of it.
     ``spec_fn(bucket) -> BlockSpec`` supplies the per-row coefficients;
     ``extra_vec`` routes a per-column weight (the item sweep's z/|H|)
-    through the slab gather. Three routes per bucket:
+    through the slab gather; ``table_other`` is cast to ``dtype`` once
+    for every gather. Three routes per bucket:
 
       * wide (``assemble.is_wide``): one streamed pass builds the full
         normal-equation pieces (``assemble.wide_gram_resid``) and every
@@ -384,6 +390,7 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
     dim = table.shape[1]
     paths = woodbury.SOLVE_PATHS
     q_full, lam_full = eig if eig is not None else (None, None)
+    table_other = assemble.cast(table_other, dtype)
 
     wood = (q_full is None    # the full-dim Woodbury supersedes it
             and dim % bs == 0 and bs >= 16
@@ -505,7 +512,7 @@ def _column_offsets(chunks):
 def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
                             by_user: Sequence[Bucket],
                             by_item: Sequence[Bucket], spec_u_fn, spec_v_fn,
-                            *, bs: int,
+                            *, bs: int, dtype=None,
                             extra_vec_v: Optional[torch.Tensor] = None,
                             g_weight_v: Optional[torch.Tensor] = None):
     """Reference-order blockwise epoch: for each block s, StepU(s) then
@@ -526,6 +533,9 @@ def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
 
     ``spec_*_fn(bucket) -> BlockSpec`` as in ``block_sweep_frozen``;
     ``extra_vec_v`` is the item sweep's per-user slot weight z/|H_u|.
+    The [rows, bs] block of the other table that the slabs gather from
+    is cast to ``dtype``; the live Gramians, the carried predictions and
+    the delta table stay f32 (the increments compound).
     Every block solve goes through ``solve.solve`` (so the kernel at
     r = bs), one launch per bucket per block per side. Zipf-head buckets
     (``assemble.is_wide``) never gather an [N, L, bs] slab: their block
@@ -552,7 +562,8 @@ def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
         paths["block"] += b.n_rows
         paths["wide"] += b.n_rows if wide else 0
         for s in range(0, dim, bs):
-            o_blk, x_loc = other[:, s:s + bs], x_full[:, s:s + bs]
+            o_blk = assemble.cast(other[:, s:s + bs], dtype)
+            x_loc = x_full[:, s:s + bs]
             if not wide:
                 pred += assemble.rowwise_dot(
                     assemble.gather_history(o_blk, b)[0], x_loc)
@@ -573,6 +584,7 @@ def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
         lhs = o_blk if g_weight is None else o_blk * g_weight[:, None]
         g_lg = lhs.T @ other                       # [bs, dim], live
         g_loc = g_lg[:, s:s + bs]
+        o_blk = assemble.cast(o_blk, dtype)
         dacc = torch.zeros((tbl_self.shape[0], bs), dtype=torch.float32,
                            device=tbl_self.device)
 
@@ -687,20 +699,20 @@ FUSE_BUDGET_BYTES = 4 << 30
 
 def user_losses(user_emb: torch.Tensor, item_emb: torch.Tensor,
                 gramian: torch.Tensor, by_user, num_users: int, uobs: float,
-                *, halve: bool) -> torch.Tensor:
+                *, halve: bool, dtype=None) -> torch.Tensor:
     """Per-user losses (reference ials.h:70-86 / safer2.h:85-101):
 
     L_u = sum_h (v^T u - 1)^2 / |H_u| + uobs * u^T G u   [ / 2 if halve ]
 
     Absent users keep loss 0."""
     return gather_and_losses(item_emb, by_user, user_emb, gramian,
-                             num_users, uobs, halve=halve,
+                             num_users, uobs, halve=halve, dtype=dtype,
                              budget_bytes=0)[0]
 
 
 def gather_and_losses(table_other: torch.Tensor, buckets, probe_table,
                       gramian: torch.Tensor, num_rows: int, uobs: float, *,
-                      halve: bool,
+                      halve: bool, dtype=None,
                       budget_bytes: int = FUSE_BUDGET_BYTES):
     """Per-row losses of the carried model, returning the gathered
     history slabs for ``solve_sweep(pre_list=...)`` so the U-sweep that
@@ -709,11 +721,14 @@ def gather_and_losses(table_other: torch.Tensor, buckets, probe_table,
     frozen tables the U-step does; see ``SAFER2._epoch``).
 
     Returns ``(loss [num_rows], pre_list or None)``, one ``pre`` entry
-    per bucket."""
+    per bucket. The slabs are gathered from ``table_other`` cast to
+    ``dtype`` once, and the budget counts their bytes in it."""
     dim = table_other.shape[1]
+    table_other = assemble.cast(table_other, dtype)
     # wide (streamed) buckets keep no slab and get a None entry
     total = sum(b.n_rows * b.width for b in buckets
-                if not assemble.is_wide(b, dim)) * dim * 4
+                if not assemble.is_wide(b, dim)) * dim * \
+        table_other.element_size()
     keep = total <= budget_bytes
     out = torch.zeros((num_rows,), dtype=torch.float32,
                       device=table_other.device)

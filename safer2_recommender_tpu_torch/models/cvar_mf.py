@@ -36,12 +36,13 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         """Returns a NEW user table one gradient step from ``ue``."""
         cfg = self.cfg
         reg = self._user_reg()
+        item_emb = assemble.cast(item_emb, self.asm_dtype)   # once a sweep
 
         def body(ue, b, pre):
             w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
             p = common.params_weighted_mean(
                 item_emb, b, torch.full((b.n_rows,), reg, device=ue.device),
-                cfg.uobs_weight, w, pre=pre)
+                cfg.uobs_weight, w, dtype=self.asm_dtype, pre=pre)
             u_rows = assemble.read_rows(ue, b)
             grad = common.grad_from_params(p, gramian, u_rows)
             return assemble.scatter_bucket(ue, b,
@@ -54,11 +55,13 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         cfg = self.cfg
         w_gram = user_emb.T @ (user_emb * dual[:, None])
         norm_dual = self._norm_dual(dd, dual)
+        user_c = assemble.cast(user_emb, self.asm_dtype)     # once a sweep
 
         def body(v, b, _):
             reg = self._item_reg(dd.item_reg, b.row_ids)
-            p = common.params_weighted_item(user_emb, b, reg,
-                                            cfg.uobs_weight, norm_dual)
+            p = common.params_weighted_item(user_c, b, reg,
+                                            cfg.uobs_weight, norm_dual,
+                                            dtype=self.asm_dtype)
             v_rows = assemble.read_rows(v, b)
             grad = common.grad_from_params(p, w_gram, v_rows)
             return assemble.scatter_bucket(v, b,
@@ -77,7 +80,8 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         present = dd.user_hist_size > 0
         loss, pre = common.gather_and_losses(
             state.item_emb, dd.by_user, state.user_emb,
-            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=True)
+            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=True,
+            dtype=self.asm_dtype)
         xi = state.xi if state.steps == 0 else quantile.exact_quantile(
             loss, cfg.alpha)
         dual = torch.where(present, (loss - xi >= 0.0).to(torch.float32),
@@ -118,12 +122,14 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         ue = torch.zeros((fold.n_pad, cfg.dim), device=self.device)
         reg = self._user_reg()
         eig = self._fold_in_prep(state) if prep is None else prep
+        item_emb = assemble.cast(state.item_emb, self.asm_dtype)
 
         def params_fn(b, pre=None):
             return common.params_weighted_mean(
-                state.item_emb, b,
+                item_emb, b,
                 torch.full((b.n_rows,), reg, device=self.device),
-                cfg.uobs_weight, torch.ones((b.n_rows,), device=self.device))
+                cfg.uobs_weight, torch.ones((b.n_rows,), device=self.device),
+                dtype=self.asm_dtype)
 
         return common.solve_sweep(ue, fold.by_user, params_fn,
                                   state.item_gramian, eig=eig)

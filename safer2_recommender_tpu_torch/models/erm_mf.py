@@ -38,7 +38,7 @@ class ERMMF(SaferFamilyMixin, Recommender):
         loss, pre = common.gather_and_losses(
             state.item_emb, dd.by_user, state.user_emb,
             state.item_gramian, dd.num_users, self.cfg.uobs_weight,
-            halve=True)
+            halve=True, dtype=self.asm_dtype)
         u, qn_u = self._step_u(state.user_emb, state.item_emb,
                                state.item_gramian, dd.by_user,
                                state.dual_weight, pre_list=pre,

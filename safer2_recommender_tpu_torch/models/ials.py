@@ -15,7 +15,7 @@ import torch
 from safer2_recommender_tpu_torch.data.dataset import DeviceData, FoldInData
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import MFState, Recommender
-from safer2_recommender_tpu_torch.ops import woodbury
+from safer2_recommender_tpu_torch.ops import assemble, woodbury
 
 
 def ials_reg_vectors(cfg, dd: DeviceData):
@@ -47,12 +47,13 @@ class IALS(Recommender):
             eig = woodbury.maybe_eigh(gram, cfg.dim, use_cg=cfg.use_cg,
                                       q_prev=q_prev,
                                       refresh_tol=cfg.eig_refresh_tol)
+        table_other = assemble.cast(table_other, self.asm_dtype)
 
         def params_fn(b, pre=None):
             reg = common.ials_reg(b.length, num_choices, cfg.l2_reg,
                                   cfg.l2_reg_exp, cfg.uobs_weight)
             return common.params_ials(table_other, b, reg, cfg.uobs_weight,
-                                      pre=pre)
+                                      dtype=self.asm_dtype, pre=pre)
 
         out = common.solve_sweep(table_self, buckets, params_fn, gram,
                                  eig=eig, use_cg=cfg.use_cg,
@@ -70,7 +71,7 @@ class IALS(Recommender):
         loss, pre = common.gather_and_losses(
             state.item_emb, dd.by_user, state.user_emb,
             state.item_gramian, dd.num_users, self.cfg.uobs_weight,
-            halve=False)
+            halve=False, dtype=self.asm_dtype)
         u, qn_u = self._sweep(state.user_emb, state.item_emb, dd.by_user,
                               dd.num_items, gram=state.item_gramian,
                               pre_list=pre, q_prev=state.eig_qu)

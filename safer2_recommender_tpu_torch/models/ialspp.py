@@ -128,7 +128,7 @@ class IALSpp(Recommender):
             u, v, preds_u = common.block_sweep_interleaved(
                 state.user_emb, state.item_emb, dd.by_user, dd.by_item,
                 self._spec_fn(dd.num_items), self._spec_fn(dd.num_users),
-                bs=cfg.block_size)
+                bs=cfg.block_size, dtype=self.asm_dtype)
             gram = v.T @ v
             loss = common.losses_from_preds(
                 preds_u, dd.by_user, u, gram, dd.num_users,
@@ -141,7 +141,8 @@ class IALSpp(Recommender):
         # describes the carried (pre-epoch) model.
         loss, pre = common.gather_and_losses(
             state.item_emb, dd.by_user, state.user_emb,
-            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=False)
+            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=False,
+            dtype=self.asm_dtype)
         # (Q, lam) of each sweep's frozen Gramian upgrades Woodbury-
         # eligible buckets to one full-dim block; warm-started from the
         # previous epoch's basis.
@@ -151,7 +152,8 @@ class IALSpp(Recommender):
         u = common.block_sweep_frozen(
             state.user_emb, state.item_emb, dd.by_user,
             state.item_gramian, self._spec_fn(dd.num_items),
-            bs=cfg.block_size, eig=eig_u, pre_list=pre)
+            bs=cfg.block_size, dtype=self.asm_dtype, eig=eig_u,
+            pre_list=pre)
         del pre
         gram_u = u.T @ u
         eig_v = woodbury.maybe_eigh(gram_u, cfg.dim, use_cg=False,
@@ -159,7 +161,8 @@ class IALSpp(Recommender):
                                     refresh_tol=cfg.eig_refresh_tol)
         v = common.block_sweep_frozen(
             state.item_emb, u, dd.by_item, gram_u,
-            self._spec_fn(dd.num_users), bs=cfg.block_size, eig=eig_v)
+            self._spec_fn(dd.num_users), bs=cfg.block_size,
+            dtype=self.asm_dtype, eig=eig_v)
         return state.replace(user_emb=u, item_emb=v, item_gramian=v.T @ v,
                              user_loss=loss, steps=state.steps + 1,
                              eig_qu=eig_u[0] if eig_u else state.eig_qu,
@@ -181,5 +184,5 @@ class IALSpp(Recommender):
         return common.block_sweep_frozen(
             ue, state.item_emb, fold.by_user, state.item_gramian,
             self._spec_fn(self.num_items), bs=self.cfg.block_size,
-            n_sweeps=self.cfg.eval_fold_in_epochs, eig=eig,
-            block_eig=block_eig)
+            n_sweeps=self.cfg.eval_fold_in_epochs, dtype=self.asm_dtype,
+            eig=eig, block_eig=block_eig)

@@ -68,7 +68,7 @@ class SAFER2(SaferFamilyMixin, Recommender):
         for t in range(cfg.pd_iterations):
             loss, pre = common.gather_and_losses(
                 v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,
-                halve=True)
+                halve=True, dtype=self.asm_dtype)
             if t == 0:
                 xi = self._xi(loss, state, xi)
             dual = torch.where(

@@ -106,6 +106,7 @@ class SAFER2pp(SAFER2):
                 u, v, preds_u = common.block_sweep_interleaved(
                     u, v, dd.by_user, dd.by_item, self._spec_u(dual),
                     self._spec_v(dd), bs=cfg.block_size,
+                    dtype=self.asm_dtype,
                     extra_vec_v=self._norm_dual(dd, dual), g_weight_v=dual)
                 gram = v.T @ v
                 loss = common.losses_from_preds(
@@ -117,7 +118,7 @@ class SAFER2pp(SAFER2):
         for t in range(cfg.pd_iterations):
             loss, pre = common.gather_and_losses(
                 v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,
-                halve=True)
+                halve=True, dtype=self.asm_dtype)
             if t == 0:
                 xi = self._xi(loss, state, xi)
             # vectorized z-step over the full dual vector
@@ -131,7 +132,8 @@ class SAFER2pp(SAFER2):
                                         refresh_tol=cfg.eig_refresh_tol)
             u = common.block_sweep_frozen(
                 u, v, dd.by_user, gram, self._spec_u(dual),
-                bs=cfg.block_size, eig=eig_u, pre_list=pre)
+                bs=cfg.block_size, dtype=self.asm_dtype, eig=eig_u,
+                pre_list=pre)
             del pre
             # raw-dual-weighted user Gramian: every V block's
             # G_loc_w / G_lg_w (safer2pp.h:532-544) is a slice of it
@@ -141,8 +143,8 @@ class SAFER2pp(SAFER2):
                                         refresh_tol=cfg.eig_refresh_tol)
             v = common.block_sweep_frozen(
                 v, u, dd.by_item, g_w, self._spec_v(dd),
-                bs=cfg.block_size, extra_vec=self._norm_dual(dd, dual),
-                eig=eig_v)
+                bs=cfg.block_size, dtype=self.asm_dtype,
+                extra_vec=self._norm_dual(dd, dual), eig=eig_v)
             if eig_u is not None:
                 eq_u, eq_v = eig_u[0], eig_v[0]
             gram = v.T @ v
@@ -168,5 +170,5 @@ class SAFER2pp(SAFER2):
         return common.block_sweep_frozen(
             ue, state.item_emb, fold.by_user, state.item_gramian,
             self._spec_u(ones), bs=self.cfg.block_size,
-            n_sweeps=self.cfg.eval_fold_in_epochs, eig=eig,
-            block_eig=block_eig)
+            n_sweeps=self.cfg.eval_fold_in_epochs, dtype=self.asm_dtype,
+            eig=eig, block_eig=block_eig)

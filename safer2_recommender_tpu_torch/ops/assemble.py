@@ -12,6 +12,17 @@ masks or clamps pad rows first. Buckets whose gathered slab would not
 fit in memory ("wide", zipf-head histories) stream through column
 chunks (``wide_chunks``, ``wide_assemble``, ``wide_matvec``,
 ``wide_gram_resid``, ``wide_obs``); the models never gather them whole.
+
+``dtype`` (None or ``torch.bfloat16``) is the assembly dtype of the JAX
+package's ``compute_dtype="bf16"``, rounded where that package rounds:
+the TABLE is cast before the gather (so is a per-row scalar gathered
+beside it), and a column weight is cast to the slab's dtype before it
+multiplies the slab. The products of a bfloat16 slab accumulate in
+float32 and come out in float32 (``row_gramians``, ``row_sums``,
+``bmm_f32``); ``matmul_lowp`` is the one product that comes out in the
+slab's dtype (the rotations into an eigenbasis). The rounding of a
+weighted operand of a float32-accumulating product follows the route
+(``weight_operand``).
 """
 
 from __future__ import annotations
@@ -40,43 +51,109 @@ def history_mask(bucket: Bucket) -> torch.Tensor:
     return (pos[None, :] < bucket.length[:, None]).to(torch.float32)
 
 
-def gather_history(table: torch.Tensor,
-                   bucket: Bucket) -> Tuple[torch.Tensor, torch.Tensor]:
+def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` (None keeps it; a tensor already in ``dtype``
+    is returned as it is, so a caller may cast a table once per sweep)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def gather_history(table: torch.Tensor, bucket: Bucket,
+                   dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather the other-side embedding rows for each history slot.
-    Returns (emb [N, L, d] already masked, mask [N, L])."""
+    Returns (emb [N, L, d] already masked, in ``dtype`` or the table's,
+    mask [N, L] f32)."""
     mask = history_mask(bucket)
+    table = cast(table, dtype)
     emb = table[bucket.col_ids] * mask[..., None].to(table.dtype)
     return emb, mask
 
 
 def gather_history_extra(table: torch.Tensor, vec: torch.Tensor,
-                         bucket: Bucket
+                         bucket: Bucket, dtype=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Row gather of the embedding rows and a per-row scalar: returns
     (emb [N, L, d] masked, mask [N, L], extra [N, L] f32 masked) with
-    ``extra[n, l] = vec[col_ids[n, l]]``."""
+    ``extra[n, l] = vec[col_ids[n, l]]`` rounded to the slab's dtype (the
+    JAX package gathers it as one more column of the cast table)."""
     mask = history_mask(bucket)
+    table = cast(table, dtype)
     emb = table[bucket.col_ids] * mask[..., None].to(table.dtype)
-    extra = vec[bucket.col_ids].to(torch.float32) * mask
+    extra = vec[bucket.col_ids].to(table.dtype).to(torch.float32) * mask
     return emb, mask, extra
+
+
+def gram_route(device) -> str:
+    """How ``bmm_f32`` multiplies bfloat16 operands on ``device``:
+    ``"out_dtype"``, one ``torch.bmm(a, b, out_dtype=torch.float32)``
+    (bfloat16 operands, float32 accumulation and result), on a CUDA
+    device whose torch has ``aten::bmm.dtype``; ``"upcast"`` otherwise:
+    the operands copied to float32 and multiplied in float32, which is
+    exact product for product (a bfloat16 x bfloat16 product fits in
+    float32). The CPU has no ``aten::bmm.dtype`` kernel."""
+    if torch.device(device).type == "cuda" and \
+            "dtype" in torch.ops.aten.bmm.overloads():
+        return "out_dtype"
+    return "upcast"
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` in float32: float32 operands as they are,
+    bfloat16 ones by ``gram_route``."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if gram_route(a.device) == "out_dtype":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+def matmul_lowp(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``x @ q`` with ``q`` cast to ``x``'s dtype and the result in it:
+    the JAX package's ``preferred_element_type=compute_dtype`` product
+    (float32 accumulation, then one rounding). On the card a bfloat16
+    GEMM (its reduction pinned to float32 by the entry points,
+    ``utils/device.py::bf16_f32_reduction``); on the CPU the rounded
+    operands are multiplied in float32 and the result rounded."""
+    q = q.to(x.dtype)
+    if x.dtype == torch.float32 or x.is_cuda:
+        return x @ q
+    return (x.to(torch.float32) @ q.to(torch.float32)).to(x.dtype)
+
+
+def weight_operand(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x * weight`` with ``weight`` cast to ``x``'s dtype first: the
+    weighted operand of a float32-accumulating product. For a bfloat16
+    ``x`` it is bfloat16 (the product rounded) on the ``"out_dtype"``
+    route, whose tensor cores take bfloat16 operands as the TPU's MXU
+    does, and the exact product in float32 on the ``"upcast"`` route,
+    which is what XLA's CPU backend computes for the JAX package's
+    ``row_gramians`` (so the CPU tests can hold the port to it)."""
+    w = weight.to(x.dtype)
+    if x.dtype != torch.float32 and gram_route(x.device) == "upcast":
+        return x.to(torch.float32) * w.to(torch.float32)
+    return x * w
 
 
 def row_gramians(emb: torch.Tensor,
                  col_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Batched sum of weighted outer products: [N, L, d] -> [N, d, d]."""
-    lhs = emb if col_weight is None else emb * col_weight[..., None]
-    return torch.bmm(lhs.transpose(1, 2), emb)
+    """Batched sum of weighted outer products: [N, L, d] -> [N, d, d]
+    f32; the weight multiplies one operand (``weight_operand``)."""
+    lhs = emb if col_weight is None else weight_operand(
+        emb, col_weight[..., None])
+    return bmm_f32(lhs.transpose(1, 2), emb)
 
 
 def row_sums(emb: torch.Tensor,
              col_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Batched weighted rhs accumulation: [N, L, d] -> [N, d]."""
-    lhs = emb if col_weight is None else emb * col_weight[..., None]
-    return lhs.sum(dim=1)
+    """Batched weighted rhs accumulation: [N, L, d] -> [N, d], summed in
+    f32 (the weight cast to the slab's dtype, as in ``row_gramians``)."""
+    lhs = emb if col_weight is None else (
+        emb * col_weight[..., None].to(emb.dtype))
+    return lhs.sum(dim=1, dtype=torch.float32)
 
 
 def rowwise_dot(emb: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
-    """Per-slot dots: [N, L, d] x [N, d] -> [N, L]."""
+    """Per-slot dots: [N, L, d] x [N, d] -> [N, L] (f32 for a bfloat16
+    slab: the product promotes, as in the JAX package)."""
     return (emb * vec[:, None, :]).sum(dim=2)
 
 
@@ -86,11 +163,13 @@ def rowwise_dot(emb: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
 
 
 def wide_chunks(table: torch.Tensor, vec: Optional[torch.Tensor],
-                 bucket: Bucket) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
-                                                   Optional[torch.Tensor]]]:
+                bucket: Bucket, dtype=None
+                ) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
+                                    Optional[torch.Tensor]]]:
     """Yield ``(emb [N, W, d] masked, mask [N, W], extra [N, W] or None)``
     for consecutive column chunks of ``bucket``, left to right
-    (``extra[n, l] = vec[col_ids[n, l]]``, masked). The chunk width is
+    (``extra[n, l] = vec[col_ids[n, l]]``, masked; the table and ``vec``
+    cast to ``dtype`` as in ``gather_history_extra``). The chunk width is
     ``WIDE_CHUNK``,
     halved until one chunk's gathered slab fits ``WIDE_SLAB_BYTES`` (a
     bucket with dim < width <= WIDE_CHUNK can be wide while one
@@ -98,6 +177,7 @@ def wide_chunks(table: torch.Tensor, vec: Optional[torch.Tensor],
     narrower."""
     n, l = bucket.n_rows, bucket.width
     w = min(WIDE_CHUNK, l)
+    table = cast(table, dtype)
     d_aug = table.shape[1] + (0 if vec is None else 1)
     while w > 256 and n * w * d_aug * 4 > WIDE_SLAB_BYTES:
         w = (w + 1) // 2
@@ -108,12 +188,12 @@ def wide_chunks(table: torch.Tensor, vec: Optional[torch.Tensor],
         mask = (pos[None, :] < bucket.length[:, None]).to(torch.float32)
         emb = table[cols] * mask[..., None].to(table.dtype)
         extra = None if vec is None else (
-            vec[cols].to(torch.float32) * mask)
+            vec[cols].to(table.dtype).to(torch.float32) * mask)
         yield emb, mask, extra
 
 
 def wide_assemble(table: torch.Tensor, bucket: Bucket,
-                  extra_vec: Optional[torch.Tensor] = None,
+                  extra_vec: Optional[torch.Tensor] = None, dtype=None,
                   row_coef: Optional[torch.Tensor] = None,
                   init_a: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +205,7 @@ def wide_assemble(table: torch.Tensor, bucket: Bucket,
     a = (torch.zeros((n, d, d), dtype=torch.float32, device=table.device)
          if init_a is None else init_a)
     rhs = torch.zeros((n, d), dtype=torch.float32, device=table.device)
-    for emb, mask, wt in wide_chunks(table, extra_vec, bucket):
+    for emb, mask, wt in wide_chunks(table, extra_vec, bucket, dtype):
         wt = mask if wt is None else wt
         if row_coef is not None:
             wt = wt * row_coef[:, None]
@@ -135,14 +215,14 @@ def wide_assemble(table: torch.Tensor, bucket: Bucket,
 
 
 def wide_matvec(table: torch.Tensor, bucket: Bucket, x: torch.Tensor,
-                extra_vec: Optional[torch.Tensor] = None
+                extra_vec: Optional[torch.Tensor] = None, dtype=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed ``(sum_h wt v (v.x), sum_h wt v)`` (the history terms of
     A @ x and rhs) for the gradient models."""
     n, d = bucket.n_rows, table.shape[1]
     ax = torch.zeros((n, d), dtype=torch.float32, device=table.device)
     rhs = torch.zeros((n, d), dtype=torch.float32, device=table.device)
-    for emb, mask, wt in wide_chunks(table, extra_vec, bucket):
+    for emb, mask, wt in wide_chunks(table, extra_vec, bucket, dtype):
         wt = mask if wt is None else wt
         p = rowwise_dot(emb, x)
         ax += row_sums(emb, col_weight=wt * p)
@@ -152,7 +232,7 @@ def wide_matvec(table: torch.Tensor, bucket: Bucket, x: torch.Tensor,
 
 def wide_gram_resid(table: torch.Tensor, bucket: Bucket,
                     x_full: torch.Tensor,
-                    extra_vec: Optional[torch.Tensor] = None
+                    extra_vec: Optional[torch.Tensor] = None, dtype=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed FULL normal-equation pieces for the blockwise models'
     zipf-head rows:
@@ -169,7 +249,7 @@ def wide_gram_resid(table: torch.Tensor, bucket: Bucket,
     n, d = bucket.n_rows, table.shape[1]
     s_acc = torch.zeros((n, d, d), dtype=torch.float32, device=table.device)
     r0 = torch.zeros((n, d), dtype=torch.float32, device=table.device)
-    for emb, mask, wt in wide_chunks(table, extra_vec, bucket):
+    for emb, mask, wt in wide_chunks(table, extra_vec, bucket, dtype):
         wt = mask if wt is None else wt
         p = rowwise_dot(emb, x_full)
         s_acc += row_gramians(emb, col_weight=wt)
@@ -178,11 +258,11 @@ def wide_gram_resid(table: torch.Tensor, bucket: Bucket,
 
 
 def wide_obs(table: torch.Tensor, bucket: Bucket,
-             probe_rows: torch.Tensor) -> torch.Tensor:
+             probe_rows: torch.Tensor, dtype=None) -> torch.Tensor:
     """Streamed per-row ``sum_h (v.u - 1)^2`` for the loss pass."""
     acc = torch.zeros((bucket.n_rows,), dtype=torch.float32,
                       device=table.device)
-    for emb, mask, _ in wide_chunks(table, None, bucket):
+    for emb, mask, _ in wide_chunks(table, None, bucket, dtype):
         p = rowwise_dot(emb, probe_rows)
         acc += (torch.square(p - 1.0) * mask).sum(dim=1)
     return acc

@@ -17,8 +17,13 @@ shrinks the per-row solve to L x L:
 
 The heavy work is one [N*L, d] x [d, d] product into the eigenbasis and
 a batched L x L SPD solve (``block_chol.spd_solve``, so the hand-written
-kernel). Every product here runs in full float32: PyTorch keeps TF32 off
-for float32 matmuls unless a caller turns it on.
+kernel). Every float32 product here runs in full float32 (the entry
+points keep TF32 off). A bfloat16 history slab (``compute_dtype="bf16"``)
+is rotated into a bfloat16 ``w``, as in the JAX package; the capacitance
+``K = ws ws^T`` multiplies ``ws`` rounded to bfloat16 and accumulates in
+float32, every system the solver sees is float32, and the products of
+``ws`` or ``w`` with float32 vectors run in float32 (the JAX package's
+bfloat16 x float32 multiply-and-sum promotes to float32).
 
 ``SOLVE_PATHS`` counts, per path, the padded bucket rows each sweep
 solved (``woodbury``, ``rotated``, ``direct``; ``block`` and
@@ -36,7 +41,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from safer2_recommender_tpu_torch.ops import block_chol
+from safer2_recommender_tpu_torch.ops import assemble, block_chol
 
 # Use Woodbury only when the history width is at most dim/2 (below that
 # the L x L path strictly dominates) and dim is large enough for the
@@ -56,7 +61,8 @@ def reset_solve_paths() -> None:
 class WideHist(NamedTuple):
     """Column-chunked history descriptor for very long rows (zipf-head
     items or users): the [N, L, d] slab is never materialized; assembly
-    streams through ``ops/assemble.py::wide_assemble``. ``row_coef``
+    streams through ``ops/assemble.py::wide_assemble``. ``table`` is in
+    the assembly dtype (cast once by the caller); ``row_coef``
     ([N] or None) scales the accumulated history terms; ``extra_vec`` is
     a per-row scalar table gathered alongside (the dual weight on the
     item side)."""
@@ -152,15 +158,25 @@ def applicable(width: int, dim: int) -> bool:
 
 def _prep(emb: torch.Tensor, wt: torch.Tensor, c0: torch.Tensor,
           c1: torch.Tensor, q: torch.Tensor, lam: torch.Tensor):
-    """Shared Woodbury ingredients: rotated history ``w`` [N, L, d],
-    rotated-basis M^-1 diagonal ``s`` [N, d], its square root ``rs``, the
-    weighted slab ``ws = diag(sqrt(wt)) W diag(rs)`` and the L x L
-    capacitance ``K = ws ws^T`` (its +I_L rides the solver's ridge)."""
-    w = emb @ q                                               # [N, L, d]
+    """Shared Woodbury ingredients: rotated history ``w`` [N, L, d] in the
+    slab's dtype, rotated-basis M^-1 diagonal ``s`` [N, d], its square
+    root ``rs``, the f32 weighted slab ``ws = diag(sqrt(wt)) W diag(rs)``
+    (the weights rounded to the slab's dtype first) and the f32 L x L
+    capacitance ``K = ws ws^T`` from ``ws`` in the slab's dtype (its +I_L
+    rides the solver's ridge). XLA computes the JAX package's
+    ``_prep``/``_finish`` so on the CPU; the port does it on every
+    device."""
+    w = assemble.matmul_lowp(emb, q)                          # [N, L, d]
     s = 1.0 / (c1[:, None] * lam[None, :] + c0[:, None])      # [N, d]
     rs = torch.sqrt(s)
-    ws = w * (torch.sqrt(wt)[:, :, None] * rs[:, None, :])
-    k = torch.bmm(ws, ws.transpose(1, 2))                     # [N, L, L]
+    # the weights rounded to the slab's dtype, their product with w exact
+    # in f32; K multiplies its rounding to the slab's dtype (the JAX
+    # package's einsum operand), the small products of _finish the f32
+    # product (its bfloat16 x float32 multiply-and-sum)
+    weight = (torch.sqrt(wt)[:, :, None] * rs[:, None, :]).to(w.dtype)
+    ws = w.to(torch.float32) * weight.to(torch.float32)
+    ws_c = ws.to(w.dtype)
+    k = assemble.bmm_f32(ws_c, ws_c.transpose(1, 2))          # [N, L, L]
     return w, s, rs, ws, k
 
 
@@ -180,7 +196,8 @@ def _finish(z: torch.Tensor, s: torch.Tensor, rs: torch.Tensor,
 def solve(p: SolveParams, q: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """Batched Woodbury solve of A x = Vh^T r -> new rows [N, d]."""
     w, s, rs, ws, k = _prep(p.emb, p.wt, p.c0, p.c1, q, lam)
-    rv = torch.bmm(p.r[:, None, :], w)[:, 0, :]               # Q^T Vh^T r
+    # Q^T Vh^T r
+    rv = torch.bmm(p.r[:, None, :], w.to(torch.float32))[:, 0, :]
     del w
     return _finish(s * rv, s, rs, ws, k, q)
 

@@ -102,7 +102,7 @@ def phase_ms(model, dd: DeviceData) -> Dict[str, float]:
 
     loss, pre = timed("loss", lambda: common.gather_and_losses(
         s.item_emb, dd.by_user, s.user_emb, s.item_gramian, dd.num_users,
-        cfg.uobs_weight, halve=True))
+        cfg.uobs_weight, halve=True, dtype=model.asm_dtype))
     xi = timed("xi", lambda: model._xi(loss, s, s.xi))
     dual = timed("z", lambda: torch.where(
         dd.user_hist_size > 0,

@@ -1,5 +1,5 @@
-"""The device an entry point runs on, and the float32 matmul precision
-it computes in.
+"""The device an entry point runs on, and the matmul precision it
+computes in.
 
 The port's entry points (``get_model``, ``Recommender``,
 ``DeviceData.build``, ``FoldInData.build``, the CLI) run on the card
@@ -9,7 +9,11 @@ fall back to the CPU on their own.
 The JAX package asks for ``Precision.HIGHEST`` at each product where
 near-ties must not reorder. PyTorch's precision is process-wide, so the
 model's entry points run under ``f32_matmul()``, which turns TF32 off
-for their duration and restores whatever the caller had set.
+for their duration and restores whatever the caller had set. It also
+holds cuBLAS to float32 reductions in bfloat16 products
+(``bf16_f32_reduction``): the JAX package accumulates every bfloat16
+product in float32 (``preferred_element_type=jnp.float32``), while
+cuBLAS may otherwise split a reduction and sum the parts in bfloat16.
 """
 
 from __future__ import annotations
@@ -60,10 +64,28 @@ def matmul_precision(precision: str):
             knob.fp32_precision = value
 
 
+@contextlib.contextmanager
+def bf16_f32_reduction():
+    """Run the body with
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off (bfloat16 GEMMs reduce in float32, split-K included), then
+    restore the caller's setting."""
+    knob = torch.backends.cuda.matmul
+    prev = knob.allow_bf16_reduced_precision_reduction
+    knob.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        knob.allow_bf16_reduced_precision_reduction = prev
+
+
+@contextlib.contextmanager
 def f32_matmul():
-    """Full float32 products (no TF32 anywhere) for the body; usable as a
-    decorator (``@f32_matmul()``) or a ``with`` block."""
-    return matmul_precision("highest")
+    """Full float32 products (no TF32 anywhere) and float32 reductions
+    in bfloat16 products for the body; usable as a decorator
+    (``@f32_matmul()``) or a ``with`` block."""
+    with matmul_precision("highest"), bf16_f32_reduction():
+        yield
 
 
 class DeviceUnavailable(RuntimeError):

@@ -1,6 +1,7 @@
 """The port's CLI (python -m safer2_recommender_tpu_torch.cli) on the
 bundled ML-1M split, on the CPU: the JAX CLI's line formats, refused
-flags of unported features, and no silent fall-back from CUDA."""
+flags of unported features, --profile_dir, --compute_dtype bf16, and no
+silent fall-back from CUDA."""
 
 import os
 import re
@@ -79,12 +80,33 @@ def _refused(argv, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2"], "item 19"),
     (["--distributed", "1"], "item 19"),
-    (["--profile_dir", "prof"], "item 7"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys):
     err = _refused(["--model_name", "safer2", "--device", "cpu"] + flags,
                    capsys)
     assert "not ported to PyTorch yet" in err and item in err
+
+
+def test_cli_profile_dir_writes_a_trace_of_the_training_loop(tmp_path):
+    # --profile_dir is ported (it was refused with item 7): a 2-epoch run
+    # writes one torch.profiler Chrome trace under the directory, and it
+    # holds the epochs' ops
+    import json
+
+    prof = tmp_path / "prof"
+    res = _run(["--dim", "8", "--uobs_weight", "0.004", "--l2_reg", "0.004",
+                "--alpha", "0.3", "--bandwidth", "0.15", "--epoch", "2",
+                "--print_train_stats", "0", "--device", "cpu",
+                "--profile_dir", str(prof)])
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert f"Profile trace of the training loop written under {prof}" \
+        in res.stderr
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("aten::bmm" in n for n in names)
 
 
 def test_cli_checkpoint_dir_saves_and_resumes(tmp_path, capsys):
@@ -264,3 +286,27 @@ def test_cli_runs_the_woodbury_path_at_dim_128(tmp_path):
     assert len(res.epoch_ms) == 2
     assert all(0.0 < w < 1.0 for w in res.mean_weights)
     assert np.isfinite(res.metrics.mean_ndcg()).all()
+
+
+def test_cli_bf16_trains_ml1m_to_the_quality_gates():
+    # --compute_dtype bf16 is ported: SAFER2 at the reference test's
+    # config reaches the ML-1M gates (tests/test_models_ml1m.py). Last in
+    # the file: the first in-process run binds the package logger to the
+    # stderr of its test, and test_cli_checkpoint_dir_saves_and_resumes
+    # reads its own
+    from safer2_recommender_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    res = cli.run([
+        "--model_name", "safer2", "--device", "cpu", "--dim", "8",
+        "--uobs_weight", "0.004", "--l2_reg", "0.004", "--alpha", "0.3",
+        "--bandwidth", "0.15", "--epoch", "10", "--print_train_stats", "0",
+        "--compute_dtype", "bf16",
+        "--train_data", os.path.join(ML1M_DIR, "train.csv"),
+        "--test_train_data", os.path.join(ML1M_DIR, "validation_tr.csv"),
+        "--test_test_data", os.path.join(ML1M_DIR, "validation_te.csv")])
+    assert res.model.asm_dtype == torch.bfloat16
+    assert res.metrics.mean_ndcg()[2] >= 0.2
+    assert len(res.mean_weights) == 10
+    for w in res.mean_weights:
+        assert w == pytest.approx(0.3, abs=0.02)

@@ -113,9 +113,10 @@ Phases, each printing lines to stdout tagged with its name:
      synth50k and synth50k-models paths by r and N against one wave of
      the card, and the kernel against its plain version at the largest
      and the most frequent shape of each path (the interleaved paths of
-     phases 12 and 17 and the served paths of phases 15 and 16
-     included), compared and timed as in phase 3, and
-     compared at every other shape the served paths gave it;
+     phases 12 and 17, the served paths of phases 15 and 16 and each
+     rank's shapes of phase 20's (b) and (c) included), compared and
+     timed as in phase 3, and compared at every other shape the served
+     and meshed paths gave it;
  19. bf16 (run between phases 14 and 16): compute_dtype="bf16" beside
      float32. ML-1M SAFER2 at dim 512, the README config, 10 epochs
      through the CLI with --compute_dtype bf16 (saving a checkpoint),
@@ -137,6 +138,29 @@ Phases, each printing lines to stdout tagged with its name:
      then 2 profiled epochs of the f32 and the bf16 ML-1M model.
      Last, a 2-epoch CLI run (dim 32, bf16) with --profile_dir: the
      trace file exists and its device kernels include chol_inverse.
+ 20. mesh (run after phase 17): the data-parallel runtime
+     (parallel/mesh.py). (a) --distributed 1 through the CLI in this
+     process, torchrun's environment set for one rank (NCCL, world size
+     1): phase 9's ML-1M dim-512 run again, NDCG@20 >= 0.2 and within
+     MESH_NDCG_TOL of phase 9's, the dual gate every epoch, the same
+     chol_inverse launch shapes, shape for shape. (b) SAFER2 and SAFER2++
+     (frozen, block 64) on the 50k workload: one epoch in this process
+     from a fresh initialization, then MESH_RANKS spawned ranks on this
+     one card over gloo with CUDA tensors (NCCL refuses two ranks on one
+     GPU), each model one epoch from the same initial tables: tables
+     within rtol 5e-3, atol 5e-5 x dim/8 of the one-process epoch, mean
+     dual weight within 1e-4, the ranks' tables bitwise equal (a
+     checksum all-gathered), chol_inverse launches per rank equal in
+     count and r to the one-process epoch's at about half the systems
+     and equal shape for shape across ranks,
+     collective calls and bytes per epoch (parallel/audit.py) against the
+     U+V table bytes, each rank's epoch ms beside the one-process one.
+     (c) a Server(k=10) on the meshed SAFER2 over the 256 longest
+     histories and 1,024 random users: ids equal its recommend()'s but
+     for near-tie swaps, equal across ranks; the kernel's shapes
+     recorded. (d) --mesh (device count +
+     1) exits non-zero with the JAX CLI's "exceeds" message. No check
+     here times more than one card.
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -958,7 +982,7 @@ def sync(device) -> None:
     import torch
 
     if device.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
 
 
 def user_batches(ds, rng, sizes):
@@ -1487,6 +1511,371 @@ def phase_server50k(models, ds, block_chol, device):
     return out
 
 
+MESH_RANKS = 2
+MESH_SYNTH = (50_000, 40_000)     # the synth50k workload's users, items
+MESH_MODELS = ("safer2", "safer2pp")   # the ++ model frozen, block 64
+# a 2-rank epoch against the one-process epoch: the JAX package's
+# sharded-vs-single bound (tests/test_multidevice.py:41-46), atol scaled
+# by dim / 8 as the port's parity tests scale it
+MESH_RTOL, MESH_ATOL = 5e-3, 5e-5
+MESH_DUAL_TOL = 1e-4
+MESH_NDCG_TOL = 0.005
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_cli(cli, block_chol, ndcg512, shapes512):
+    """[mesh] (a): ``--distributed 1`` through the CLI in this process,
+    torchrun's environment set for one rank (NCCL, world size 1): the
+    dim512 run again, its NDCG@20 and launch shapes against phase 9's."""
+    import torch.distributed as dist
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    block_chol.reset_launches()
+    try:
+        with recorded_chol_shapes(block_chol) as shapes:
+            res = train(cli, 512, DIM512_EPOCHS,
+                        args=README_ARGS + ["--distributed", "1"])
+        mesh = res.model.mesh
+        backend = dist.get_backend()
+        traffic = mesh.traffic.snapshot()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = dict(block_chol.LAUNCHES)
+    ndcg20 = float(res.metrics.mean_ndcg()[2])
+    check(mesh.world_size == 1 and backend == "nccl",
+          f"mesh (a): world {mesh.world_size}, backend {backend}")
+    check(ndcg20 >= NDCG20_MIN and abs(ndcg20 - ndcg512) <= MESH_NDCG_TOL,
+          f"mesh (a): NDCG@20 {ndcg20} vs dim512's {ndcg512} "
+          f"(tol {MESH_NDCG_TOL})")
+    check_dual(res, "mesh (a)")
+    check(Counter(shapes) == Counter(shapes512),
+          "mesh (a): chol_inverse launch shapes differ from dim512's")
+    check(len(shapes) == sum(launches.values()),
+          "mesh (a): launches do not match calls")
+    from safer2_recommender_tpu_torch.parallel import audit
+
+    say("mesh", f"(a) --distributed 1, NCCL, world size 1, ML-1M SAFER2 "
+        f"dim 512, {DIM512_EPOCHS} epochs: NDCG@20 {ndcg20:.4f} (dim512 "
+        f"{ndcg512:.4f}); mean dual weight "
+        f"{[round(w, 4) for w in res.mean_weights]}; epoch ms "
+        f"{res.epoch_ms}; chol_inverse launches {sum(launches.values())} "
+        f"by r {launches}, shape for shape dim512's; collectives of the run "
+        f"(training + evaluations) {traffic}, "
+        f"{audit.total_calls(traffic)} calls")
+    return dict(ndcg20=ndcg20, epoch_ms=res.epoch_ms,
+                mean_weights=res.mean_weights, launches=launches,
+                traffic=traffic)
+
+
+def checksum(tensors) -> list:
+    """Two int64 sums of the tensors' float32 bits (plain, and weighted
+    by position), for a bitwise comparison across ranks."""
+    import torch
+
+    out = []
+    for t in tensors:
+        bits = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out += [bits.sum(), (bits * pos).sum()]
+    return torch.stack(out)
+
+
+@contextlib.contextmanager
+def timed_gathers(mesh_lib, device):
+    """Record the ms of each ``all_gather_rows`` while open, each from a
+    synchronize to a synchronize (the sweeps' row shares)."""
+    spent, gather = [], mesh_lib.all_gather_rows
+
+    def timed(mesh, x):
+        sync(device)
+        t0 = time.perf_counter()
+        out = gather(mesh, x)
+        sync(device)
+        spent.append((time.perf_counter() - t0) * 1000)
+        return out
+
+    mesh_lib.all_gather_rows = timed
+    try:
+        yield spent
+    finally:
+        mesh_lib.all_gather_rows = gather
+
+
+def mesh_rank(mesh, root: str, tmp: str, synth, cfg) -> dict:
+    """[mesh] (b) and (c) on one rank: each model of MESH_MODELS one
+    epoch on ``powerlaw_dataset(*synth, seed=0)`` at ``cfg`` from the
+    one-process run's initial tables (``tmp``), held to that run's
+    tables; the same epoch twice more from the same tables and generator
+    state, once timed (warm) and once with each row share timed; then a
+    Server on the SAFER2 model."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    from safer2_recommender_tpu_torch import (Dataset, DeviceData,
+                                              get_model, interop)
+    from safer2_recommender_tpu_torch.data.synth import powerlaw_dataset
+    from safer2_recommender_tpu_torch.ops import block_chol
+    from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    ds = Dataset(*powerlaw_dataset(*synth, seed=0))
+    dd = DeviceData.build(ds, device=dev, dim=cfg.dim, mesh=mesh)
+    out = dict(setup_s=time.perf_counter() - t0, rows_by_bucket=[
+        b.n_rows for b in dd.by_user + dd.by_item])
+    atol = MESH_ATOL * max(1, cfg.dim / 8)
+    for name in MESH_MODELS:
+        model = get_model(name, cfg, ds.num_users, ds.num_items,
+                          device=dev, mesh=mesh)
+        with np.load(os.path.join(tmp, f"{name}_init.npz")) as f:
+            init = dict(f)
+        interop.state_from_jax(init, model, dd, steps=0)
+        gen = model.generator.get_state()
+        sync(dev)
+        block_chol.reset_launches()
+        mesh.traffic.reset()
+        with recorded_chol_shapes(block_chol) as shapes:
+            t1 = time.perf_counter()
+            model.train_epoch(dd)
+            sync(dev)
+            ms = (time.perf_counter() - t1) * 1000
+        traffic = mesh.traffic.snapshot()
+        got = model.export_state(dd)
+        err = {}
+        with np.load(os.path.join(tmp, f"{name}_after.npz")) as f:
+            for k in ("user_emb", "item_emb", "user_loss", "dual_weight"):
+                want = f[k]
+                excess = np.abs(got[k] - want) - (atol + MESH_RTOL
+                                                  * np.abs(want))
+                err[k] = dict(max_abs=float(np.abs(got[k] - want).max()),
+                              max_excess=float(excess.max()))
+        launches = dict(block_chol.LAUNCHES)
+        s = model.state
+        sums = mesh_lib.all_gather_rows(mesh, checksum(
+            [s.user_emb, s.item_emb, s.user_loss, s.dual_weight,
+             s.xi.reshape(1)])[None]).cpu().numpy()
+        again = []
+        for timing in (contextlib.nullcontext([]),
+                       timed_gathers(mesh_lib, dev)):
+            interop.state_from_jax(init, model, dd, steps=0)
+            model.generator.set_state(gen)
+            with timing as gather_ms:
+                sync(dev)
+                t1 = time.perf_counter()
+                model.train_epoch(dd)
+                sync(dev)
+            again.append(((time.perf_counter() - t1) * 1000, gather_ms))
+        same = bool(torch.equal(model.state.user_emb, s.user_emb)
+                    and torch.equal(model.state.item_emb, s.item_emb))
+        out[name] = dict(epoch_ms=ms, warm_epoch_ms=again[0][0],
+                         timed_epoch_ms=again[1][0],
+                         gather_ms=again[1][1], repeat_equal=same,
+                         traffic=traffic, shapes=shapes,
+                         launches=launches, err=err,
+                         mean_dual=model.get_mean_weight(),
+                         ranks_equal=bool((sums == sums[0]).all()))
+        if name == "safer2":
+            out["server"] = mesh_serve(model, ds, dev, block_chol)
+        del model, s
+    return out
+
+
+def mesh_serve(model, ds, dev, block_chol) -> dict:
+    """[mesh] (c): a Server on the meshed model, over the 256 longest
+    histories and 1,024 random users, against its own recommend(); the
+    kernel's shapes of both recorded (the rank's)."""
+    import numpy as np
+
+    from safer2_recommender_tpu_torch import Server
+
+    rng = np.random.default_rng(SERVE_SEED)
+    longest, _ = longest_histories(ds, 256)
+    batches = [longest] + user_batches(ds, rng, [1024])
+    srv = Server(model, k=10)
+    got, ties, ms = [], 0, []
+    with recorded_chol_shapes(block_chol) as shapes:
+        for i, batch in enumerate(batches):
+            sync(dev)
+            t0 = time.perf_counter()
+            served = srv.recommend(batch)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1000)
+            ties += check_served(f"mesh (c) batch {i}", model, batch,
+                                 served, model.recommend(batch, k=10))
+            got.append(served)
+    return dict(ids=got, near_tie_rows=ties, graphs=srv.num_compiles,
+                batch_sizes=list(srv.batch_sizes), ms=ms, shapes=shapes)
+
+
+def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
+    """[mesh] (b) and (c): the one-process epochs of MESH_MODELS on the
+    50k workload here, then MESH_RANKS ranks on this one card over gloo
+    (NCCL refuses two ranks on one GPU), each model one epoch from the
+    same initial tables, and a Server on the meshed SAFER2. ``workload``
+    is ``(powerlaw_dataset(*synth, seed=0) as a Dataset, its DeviceData,
+    Config)``."""
+    import numpy as np
+    import torch
+
+    from safer2_recommender_tpu_torch import get_model, parallel
+    from safer2_recommender_tpu_torch.parallel import audit
+
+    ds, dd, cfg = workload
+    single = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        for name in MESH_MODELS:
+            model = get_model(name, cfg, ds.num_users, ds.num_items,
+                              device=device)
+            model.initialize(dd)
+            np.savez(os.path.join(tmp, f"{name}_init.npz"),
+                     **model.export_state(dd))
+            block_chol.reset_launches()
+            with recorded_chol_shapes(block_chol) as shapes:
+                sync(device)
+                t0 = time.perf_counter()
+                model.train_epoch(dd)
+                sync(device)
+                ms = (time.perf_counter() - t0) * 1000
+            np.savez(os.path.join(tmp, f"{name}_after.npz"),
+                     **model.export_state(dd))
+            single[name] = dict(epoch_ms=ms, shapes=shapes,
+                                mean_dual=model.get_mean_weight(),
+                                launches=dict(block_chol.LAUNCHES))
+            del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = parallel.spawn(mesh_rank, MESH_RANKS, device=device,
+                               backend="gloo", args=(ROOT, tmp, synth, cfg),
+                               timeout_s=600)
+        spawn_s = time.perf_counter() - t0
+    table_bytes = (ds.num_users + ds.num_items) * cfg.dim * 4
+    out = dict(spawn_s=spawn_s, table_bytes=table_bytes)
+    for name in MESH_MODELS:
+        one = single[name]
+        rs = [r[name] for r in ranks]
+        for i, r in enumerate(rs):
+            bad = {k: v for k, v in r["err"].items() if v["max_excess"] > 0}
+            check(not bad, f"mesh (b) {name} rank {i}: tables off the "
+                  f"one-process epoch beyond rtol {MESH_RTOL:g}, atol "
+                  f"{MESH_ATOL:g} x dim/8: {bad}")
+            check(abs(r["mean_dual"] - one["mean_dual"]) <= MESH_DUAL_TOL,
+                  f"mesh (b) {name} rank {i}: mean dual weight "
+                  f"{r['mean_dual']} vs {one['mean_dual']}")
+            check(r["ranks_equal"], f"mesh (b) {name}: rank tables differ")
+            check(len(r["shapes"]) == len(one["shapes"]) and [
+                sh[1:] for sh in r["shapes"]] == [
+                sh[1:] for sh in one["shapes"]],
+                f"mesh (b) {name} rank {i}: {len(r['shapes'])} launches "
+                f"vs {len(one['shapes'])} in one process")
+            check(r["launches"] and sum(r["launches"].values()) > 0,
+                  f"mesh (b) {name} rank {i}: no chol_inverse launch")
+            check(r["shapes"] == rs[0]["shapes"],
+                  f"mesh (b) {name} rank {i}: other launch shapes than "
+                  f"rank 0's")
+        n_one = sum(sh[0] for sh in one["shapes"])
+        n_rank = [sum(sh[0] for sh in r["shapes"]) for r in rs]
+        traffic = rs[0]["traffic"]
+        for i, r in enumerate(rs):
+            check(r["repeat_equal"], f"mesh (b) {name} rank {i}: a repeat "
+                  f"of the epoch from the same start differs")
+        out[name] = dict(
+            single_epoch_ms=one["epoch_ms"],
+            rank_epoch_ms=[r["epoch_ms"] for r in rs],
+            rank_warm_epoch_ms=[r["warm_epoch_ms"] for r in rs],
+            rank_timed_epoch_ms=[r["timed_epoch_ms"] for r in rs],
+            rank_gather_ms=[r["gather_ms"] for r in rs],
+            traffic=traffic, collective_calls=audit.total_calls(traffic),
+            collective_bytes=audit.total_bytes(traffic),
+            bytes_over_tables=audit.total_bytes(traffic) / table_bytes,
+            launches_single=len(one["shapes"]),
+            launches_per_rank=[len(r["shapes"]) for r in rs],
+            systems_single=n_one, systems_per_rank=n_rank,
+            launches_by_r=[r["launches"] for r in rs],
+            max_abs_err={k: max(r["err"][k]["max_abs"] for r in rs)
+                         for k in rs[0]["err"]},
+            mean_dual=[one["mean_dual"]] + [r["mean_dual"] for r in rs],
+            shapes=rs[0]["shapes"])
+        say("mesh", f"(b) {name}, {synth[0]} x {synth[1]} power-law set, "
+            f"dim {cfg.dim}, block {cfg.block_size}, "
+            f"{MESH_RANKS} ranks on one card (gloo, CUDA tensors), one "
+            f"epoch from the one-process run's tables: epoch ms one process "
+            f"{one['epoch_ms']:.1f}, by rank first "
+            f"{[round(r['epoch_ms'], 1) for r in rs]}, warm repeat "
+            f"{[round(r['warm_epoch_ms'], 1) for r in rs]}, repeat with "
+            f"each row share timed {[round(r['timed_epoch_ms'], 1) for r in rs]}"
+            f" of which the shares (ms) "
+            f"{[[round(t, 1) for t in r['gather_ms']] for r in rs]}; "
+            f"collectives per "
+            f"epoch {traffic} = {audit.total_bytes(traffic)} B, "
+            f"{audit.total_bytes(traffic) / table_bytes:.3f} x the U+V "
+            f"tables ({table_bytes} B); chol_inverse launches one process "
+            f"{len(one['shapes'])} ({n_one} systems), per rank "
+            f"{[len(r['shapes']) for r in rs]} ({n_rank} systems); max abs "
+            f"err vs one process {out[name]['max_abs_err']}; mean dual "
+            f"{out[name]['mean_dual']}; ranks bitwise equal")
+    served = [r["server"] for r in ranks]
+    for i, srv in enumerate(served[1:], 1):
+        check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                  for a, b in zip(srv["ids"], served[0]["ids"])),
+              f"mesh (c): rank {i} served other users or ids than rank 0")
+    out["server"] = dict(
+        near_tie_rows=[s["near_tie_rows"] for s in served],
+        graphs=served[0]["graphs"], batch_sizes=served[0]["batch_sizes"],
+        ms_by_rank=[s["ms"] for s in served],
+        users=[int(b[0].size) for b in served[0]["ids"]],
+        shapes=sorted({sh for s in served for sh in s["shapes"]}))
+    say("mesh", f"(c) Server(k=10) on the 2-rank SAFER2 model, rungs "
+        f"{served[0]['batch_sizes']} (multiples of 8 x {MESH_RANKS}), "
+        f"{served[0]['graphs']} graphs per rank, batches of "
+        f"{out['server']['users']} users: ids equal recommend()'s on the "
+        f"mesh but for near-tie rows {out['server']['near_tie_rows']}, "
+        f"equal across ranks; ms per batch by rank "
+        f"{[[round(t, 1) for t in s['ms']] for s in served]}")
+    say("mesh", f"{MESH_RANKS} ranks spawned, run and joined in "
+        f"{spawn_s:.1f} s (data, bucketing and CUDA start-up in each rank; "
+        f"setup {[round(r['setup_s'], 1) for r in ranks]} s)")
+    return out
+
+
+def phase_mesh_refused():
+    """[mesh] (d): ``--mesh 2`` on a one-card machine exits non-zero with
+    the JAX CLI's message."""
+    import torch
+
+    base = [os.path.join(ML1M, f) for f in
+            ("train.csv", "validation_tr.csv", "validation_te.csv")]
+    argv = [sys.executable, "-m", "safer2_recommender_tpu_torch.cli",
+            "--model_name", "safer2", "--train_data", base[0],
+            "--test_train_data", base[1], "--test_test_data", base[2],
+            "--mesh", str(torch.cuda.device_count() + 1)]
+    res = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT,
+                         timeout=300)
+    want = (f"--mesh {torch.cuda.device_count() + 1} exceeds the "
+            f"{torch.cuda.device_count()} available devices")
+    check(res.returncode != 0 and want in res.stderr,
+          f"mesh (d): rc {res.returncode}, stderr {res.stderr[-500:]!r}")
+    say("mesh", f"(d) {' '.join(argv[2:3] + argv[-2:])}: exit "
+        f"{res.returncode}, {want!r}")
+    return dict(rc=res.returncode, message=want)
+
+
 def main() -> int:
     import torch
 
@@ -1653,6 +2042,9 @@ def run_phases(device, ckpt_root: str) -> None:
         workload[0], block_chol, device)
     inter50k = phase_interleaved50k(block_chol, woodbury, device, workload,
                                     wave)
+    mesh = dict(cli=phase_mesh_cli(cli, block_chol, ndcg512, shapes512),
+                ranks=phase_mesh_ranks(block_chol, device, workload),
+                refused=phase_mesh_refused())
     del workload
     torch.cuda.empty_cache()
 
@@ -1690,6 +2082,12 @@ def run_phases(device, ckpt_root: str) -> None:
     for name, r in server50k.items():
         served[f"server50k_{name}"] = r.pop("shapes")
     served["server_ml1m_dim512_bf16"] = bf16_server.pop("shapes")
+    # each rank's shapes of [mesh] (b) (about half the one-process N) and
+    # of the meshed Server (c): rank 0's, equal to rank 1's by (b)'s check
+    for name in MESH_MODELS:
+        served[f"mesh_rank_synth50k_{name}"] = mesh["ranks"][name].pop(
+            "shapes")
+    served["mesh_server"] = mesh["ranks"]["server"].pop("shapes")
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
         "most_frequent_ml1m_dim512": most_frequent(shapes512),
@@ -1714,7 +2112,8 @@ def run_phases(device, ckpt_root: str) -> None:
         main_t[key] = time_at(chol_probe, device, shape)
         say("kernel", f"{key} {chol_probe.describe(main_t[key])}; max rel "
             f"err {main_t[key]['max_rel_err']:.3e} (tol {REL_TOL:g})")
-    # every other shape the served paths gave the kernel, compared only
+    # every other shape the served and meshed paths gave the kernel,
+    # compared only
     rest = sorted({sh for v in served.values() for sh in v if sh[0] > 0}
                   - set(main_shapes.values()))
     served_err = 0.0
@@ -1722,7 +2121,8 @@ def run_phases(device, ckpt_root: str) -> None:
         served_err = max(served_err,
                          check_at(chol_probe, device, shape)[2]["max_abs_err"])
     say("kernel", f"the kernel against its plain version at the other "
-        f"{len(rest)} shapes of the served paths {[list(sh) for sh in rest]}"
+        f"{len(rest)} shapes of the served and meshed paths "
+        f"{[list(sh) for sh in rest]}"
         f": max abs err {served_err:.3e}, each system's rel err within "
         f"{REL_TOL:g}")
     head = main_t["largest_ml1m_dim512"]
@@ -1750,7 +2150,10 @@ def run_phases(device, ckpt_root: str) -> None:
                      + sum(bf16_ml1m["launches"].values())
                      + sum(sum(r["launches"].values())
                            for k, r in bf16_synth.items() if k != "profile")
-                     + bf16_profile["launches"]),
+                     + bf16_profile["launches"]
+                     + sum(mesh["cli"]["launches"].values())
+                     + sum(sum(by_r.values()) for name in MESH_MODELS
+                           for by_r in mesh["ranks"][name]["launches_by_r"])),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
                            + [v["max_abs_err"] for v in main_t.values()]
                            + [served_err]),
@@ -1803,7 +2206,12 @@ def run_phases(device, ckpt_root: str) -> None:
                     per_capture=bf16_server["per_capture"],
                     graphs=bf16_server["graphs"],
                     replays=bf16_server["replays"]),
-                "profile_dir_run": bf16_profile["launches"]}},
+                "profile_dir_run": bf16_profile["launches"]},
+            "mesh": {
+                "cli_distributed_world1": mesh["cli"]["launches"],
+                "ranks_synth50k": {
+                    name: mesh["ranks"][name]["launches_by_r"]
+                    for name in MESH_MODELS}}},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
@@ -1820,6 +2228,7 @@ def run_phases(device, ckpt_root: str) -> None:
         "bf16": dict(ml1m_dim512=bf16_ml1m, synth50k=bf16_synth,
                      gram=bf16_gram, server_ml1m_dim512=bf16_server,
                      profile_dir=bf16_profile),
+        "mesh": mesh,
     }, {
         "name": "bdot",
         "route": "cuda",

@@ -21,6 +21,9 @@ random stream a ``torch.Generator`` on the model, whose state is saved as
 ``generator_state`` (uint8) beside the fields when ``save`` is given the
 generator, so that a resumed run draws what a continued run draws (the
 JAX package keeps a PRNG ``key`` field instead; the port ignores it).
+
+On a mesh the state is replicated, so rank 0 writes, a barrier follows,
+and then every rank may restore the same files.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
@@ -66,17 +70,27 @@ def _put_like(value: np.ndarray, template):
 
 
 class CheckpointManager:
-    """Save/restore model states keyed by epoch."""
+    """Save/restore model states keyed by epoch; on ``mesh`` (the model's)
+    rank 0 writes and every rank waits for it."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def save(self, state, epoch: int, meta: Optional[dict] = None,
              generator: Optional[torch.Generator] = None) -> None:
         """Persist ``state``, the id-space ``meta`` from
         ``Recommender.checkpoint_meta()`` and, when given, the state of
-        ``generator`` (the model's ``torch.Generator``)."""
+        ``generator`` (the model's ``torch.Generator``). On a mesh only
+        rank 0 writes; every rank returns once the files are complete."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._write(state, epoch, meta, generator)
+        if self.mesh is not None:
+            mesh_lib.barrier(self.mesh)
+
+    def _write(self, state, epoch: int, meta: Optional[dict],
+               generator: Optional[torch.Generator]) -> None:
         leaves = {k: _to_numpy(v) for k, v in _field_dict(state).items()}
         if generator is not None:
             leaves[GENERATOR_KEY] = generator.get_state().numpy()

@@ -20,8 +20,17 @@ loop (CPU activity, and CUDA activity on the card) under DIR as
 ``<host>_<pid>.<ns>.pt.trace.json``, a Chrome trace (chrome://tracing,
 Perfetto, TensorBoard's profiler plugin). ``--device`` (default
 ``cuda``) picks the device; a missing CUDA device is an error, never a
-silent switch to the CPU. Flags of features not ported yet (``--mesh``,
-``--distributed``) are refused with the ROADMAP item that ports them.
+silent switch to the CPU.
+
+Multi-device runs (``parallel/mesh.py``), one process per device:
+``--mesh N`` spawns N local ranks (``--device cpu``: N gloo processes; on
+CUDA one card each, NCCL); ``--distributed 1`` joins the process group
+that torchrun's environment describes, one rank per process::
+
+    torchrun --nproc_per_node 2 -m safer2_recommender_tpu_torch.cli \
+        --distributed 1 --model_name safer2 ...
+
+Every rank logs the JAX CLI's lines, its rank in the prefix.
 """
 
 from __future__ import annotations
@@ -45,12 +54,6 @@ from safer2_recommender_tpu_torch.utils.logging import Timer, setup
 
 MODEL_CHOICES = ("ials", "ialspp", "safer2", "safer2pp", "cvar_mf",
                  "erm_mf")
-
-# flag -> (is it set?, ROADMAP Queue 1 item that ports it)
-_NOT_PORTED = {
-    "--mesh": (lambda a: a.mesh != 0, 19),
-    "--distributed": (lambda a: a.distributed != 0, 19),
-}
 
 
 def _existing_file(path: str) -> str:
@@ -97,9 +100,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print_test_results", type=int, default=0)
     p.add_argument("--print_residual_stats", type=int, default=0)
     p.add_argument("--print_var_stats", type=int, default=0)
-    # additions of the JAX package (the unported ones are refused)
-    p.add_argument("--distributed", type=int, default=0)
-    p.add_argument("--mesh", type=int, default=0)
+    # additions of the JAX package
+    p.add_argument("--distributed", type=int, default=0,
+                   help="join the process group of torchrun's environment "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT) "
+                        "and shard over all its ranks")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard over this many devices, one spawned local "
+                        "process each (0 = single device)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eig_refresh_tol", type=float, default=8e-2)
     p.add_argument("--block_interleaved", type=int, default=0)
@@ -148,7 +156,8 @@ class RunResult:
     """What one CLI run produced: the trained model, the final
     validation metrics, each logged train span in ms (one per dispatch
     of ``--epochs_per_dispatch`` epochs) and the mean dual weight after
-    each span."""
+    each span. A ``--mesh`` run returns rank 0's, without the model
+    (it stays in its process)."""
 
     model: object
     metrics: EvaluationResult
@@ -160,15 +169,48 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
     """Parse ``argv``, train, evaluate; the body of ``main``."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, (is_set, item) in _NOT_PORTED.items():
-        if is_set(args):
-            parser.error(f"{flag} is not ported to PyTorch yet (ROADMAP "
-                         f"Queue 1 item {item})")
     try:
         device = resolve_device(args.device)
     except DeviceUnavailable as e:
         parser.error(f"--device {args.device}: {e}")
-    log = setup()
+    if args.mesh < 0:
+        parser.error(f"--mesh {args.mesh}: must be >= 0")
+    from safer2_recommender_tpu_torch import parallel
+
+    if args.distributed:
+        mesh = parallel.init_distributed(args.device)
+        if args.mesh and args.mesh != mesh.world_size:
+            parser.error(f"--mesh {args.mesh} with --distributed 1: the "
+                         f"process group has {mesh.world_size} ranks")
+        setup(mesh=mesh).info(
+            "distributed: process %d/%d, %d global devices", mesh.rank,
+            mesh.world_size, mesh.world_size)
+        return _train(args, mesh.device, mesh)
+    if args.mesh:
+        import torch
+
+        count = torch.cuda.device_count()
+        if device.type == "cuda" and args.mesh > count:
+            raise SystemExit(f"--mesh {args.mesh} exceeds the {count} "
+                             "available devices")
+        try:
+            return parallel.spawn(_mesh_rank, args.mesh, device=args.device,
+                                  args=(argv,))[0]
+        except RuntimeError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from e
+    return _train(args, device, None)
+
+
+def _mesh_rank(mesh, argv: Optional[List[str]]) -> RunResult:
+    """One rank of a ``--mesh`` run (``parallel.spawn``)."""
+    res = _train(build_parser().parse_args(argv), mesh.device, mesh)
+    return dataclasses.replace(res, model=None)
+
+
+def _train(args, device, mesh) -> RunResult:
+    """Train and evaluate as ``args`` say, on ``device`` (and ``mesh``,
+    None for one device)."""
+    log = setup(mesh=mesh)
 
     from safer2_recommender_tpu_torch.data.dataset import (
         Dataset,
@@ -207,12 +249,12 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
                 f"{name} contains item id {int(ds.item_ids.max())} "
                 f">= the training catalog size {train.num_items}")
 
-    dd = DeviceData.build(train, device=device, dim=args.dim)
+    dd = DeviceData.build(train, device=device, dim=args.dim, mesh=mesh)
     fold = FoldInData.build(test_tr, test_te, num_items=train.num_items,
-                            device=device, dim=args.dim)
+                            device=device, dim=args.dim, mesh=mesh)
 
     model = get_model(args.model_name, cfg, train.num_users,
-                      train.num_items, device=device)
+                      train.num_items, device=device, mesh=mesh)
     model.set_print_train_stats(bool(args.print_train_stats))
     model.set_print_residual_stats(bool(args.print_residual_stats))
     model.set_print_var_stats(bool(args.print_var_stats))
@@ -221,7 +263,7 @@ def run(argv: Optional[List[str]] = None) -> RunResult:
     if args.checkpoint_dir:
         from safer2_recommender_tpu_torch.checkpoint import CheckpointManager
 
-        ckpt = CheckpointManager(args.checkpoint_dir)
+        ckpt = CheckpointManager(args.checkpoint_dir, mesh=mesh)
         restored, start_epoch, meta = ckpt.restore_with_meta(
             model.state, generator=model.generator)
     if restored is not None:

@@ -1,4 +1,4 @@
-"""Data layer: CSV ingest -> bucketed COO/CSR tensors on one device.
+"""Data layer: CSV ingest -> bucketed COO/CSR tensors on a device.
 
 The PyTorch counterpart of ``safer2_recommender_tpu/data/dataset.py``.
 The host-side bucketing is the same numpy code, so the bucket arrays,
@@ -15,6 +15,14 @@ padded tiles ``Bucket(row_ids[N], col_ids[N, L], length[N])``:
 Torch index ops raise on the out-of-bounds pad ids where JAX dropped or
 clamped them, so every consumer masks pads before it indexes
 (``ops/assemble.py``).
+
+On a mesh (``parallel/mesh.py``) every rank buckets the whole dataset,
+as each JAX process parses the whole CSV, with ``row_multiple`` times
+the shard count so every bucket's rows divide evenly, and keeps only its
+contiguous block of each bucket's rows (and of the fold-in's per-row
+arrays): the shard ``P("data")`` gives its device in the JAX package.
+The per-id vectors (history sizes, ``item_reg``, the permutations) stay
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,8 +35,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
-                                                       resolve_device)
+from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
+from safer2_recommender_tpu_torch.utils.device import DEFAULT_DEVICE
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
@@ -130,6 +138,16 @@ class Bucket:
     and their padded window ``[row_start, row_start + n_rows)`` lies
     inside the table, so row reads and write-backs are plain slices.
     ``row_ids`` stays authoritative either way.
+
+    A bucket sharded over ``mesh`` holds one rank's block of
+    ``global_rows`` rows; the choices that the JAX package makes from a
+    bucket's shape (``assemble.is_wide``, the solve batches of
+    ``models/common.py``) read the global shape, so every rank takes
+    the route the whole bucket takes. A sweep shares its solved rows
+    over ``mesh`` into every rank's copy of the table
+    (``models/common.py::share_rows``) unless ``shared`` is False: the
+    ``Server``'s rank-local fold-in table, whose rows no other rank
+    reads.
     """
 
     row_ids: torch.Tensor    # [N] int64; padded rows == num_rows
@@ -137,10 +155,16 @@ class Bucket:
     length: torch.Tensor     # [N] int64; 0 on padded rows
     row_start: Optional[int] = None   # host int (contiguous only)
     contiguous: bool = False
+    mesh: Optional[mesh_lib.Mesh] = None   # the mesh it is split over
+    shared: bool = True      # solved rows shared over ``mesh``
 
     @property
     def n_rows(self) -> int:
         return self.row_ids.shape[0]
+
+    @property
+    def global_rows(self) -> int:
+        return self.n_rows * mesh_lib.num_shards(self.mesh)
 
     @property
     def width(self) -> int:
@@ -150,6 +174,16 @@ class Bucket:
         return dataclasses.replace(
             self, row_ids=self.row_ids.to(device),
             col_ids=self.col_ids.to(device), length=self.length.to(device))
+
+    def shard(self, mesh) -> "Bucket":
+        """This rank's contiguous block of the rows (all without a mesh);
+        a contiguous bucket's block is a contiguous window too."""
+        lo, hi = mesh_lib.row_range(mesh, self.n_rows)
+        return dataclasses.replace(
+            self, row_ids=self.row_ids[lo:hi], col_ids=self.col_ids[lo:hi],
+            length=self.length[lo:hi],
+            row_start=(self.row_start + lo if self.contiguous else None),
+            mesh=mesh)
 
 
 def _t(x: np.ndarray) -> torch.Tensor:
@@ -318,13 +352,14 @@ def _csr_views(ids: np.ndarray, other: np.ndarray):
 
 @dataclasses.dataclass(frozen=True)
 class DeviceData:
-    """Training dataset (both adjacency views) on one device.
+    """Training dataset (both adjacency views) on a device.
 
     Every per-row array here, and every model table trained against it,
     lives in solver-order id space (``_solver_order``): ``*_perm`` maps
     original -> solver ids, ``*_order`` maps back. ``user_hist_size`` /
     ``item_hist_size`` are 0 at id gaps; ``item_reg`` is the SAFER
     family's per-item statistic sum(1/|H_u|) over the item's users.
+    ``mesh`` is the mesh the buckets are sharded over (None: whole).
     """
 
     by_user: Tuple[Bucket, ...]
@@ -339,6 +374,7 @@ class DeviceData:
     item_perm: torch.Tensor        # [num_items] int64 old->new
     user_order: torch.Tensor       # [num_users] int64 new->old
     item_order: torch.Tensor       # [num_items] int64 new->old
+    mesh: Optional[mesh_lib.Mesh] = None
 
     @property
     def device(self) -> torch.device:
@@ -356,10 +392,12 @@ class DeviceData:
         growth: int = 2,
         dim: int = 0,
         memory_budget_bytes: int = 2 << 30,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ) -> "DeviceData":
-        device = resolve_device(device)
+        device = mesh_lib.place(device, mesh)
         num_users = num_users or ds.num_users
         num_items = num_items or ds.num_items
+        row_multiple = row_multiple * mesh_lib.num_shards(mesh)
         max_rows, max_tuples = _bucket_budgets(dim, memory_budget_bytes)
 
         u_rows, u_cols = _csr_views(ds.user_ids, ds.item_ids)
@@ -387,8 +425,8 @@ class DeviceData:
         f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
         ids = lambda x: _t(x).to(device)
         return cls(
-            by_user=tuple(b.to(device) for b in by_user),
-            by_item=tuple(b.to(device) for b in by_item),
+            by_user=tuple(b.shard(mesh).to(device) for b in by_user),
+            by_item=tuple(b.shard(mesh).to(device) for b in by_item),
             user_hist_size=f32(uh[order_u]),
             item_hist_size=f32(ih[order_i]),
             item_reg=f32(ireg[order_i]),
@@ -399,6 +437,7 @@ class DeviceData:
             item_perm=ids(perm_i),
             user_order=ids(order_u),
             item_order=ids(order_i),
+            mesh=mesh,
         )
 
 
@@ -411,7 +450,9 @@ class FoldInData:
     full catalog. Eval users get compact row ids 0..n_eval-1; ``gt`` and
     ``excl`` are padded with ``num_items`` (never matches a real item).
     Item ids here are in ORIGINAL id space; models remap them
-    (``models/base.py::_permute_fold``).
+    (``models/base.py::_permute_fold``). On a ``mesh`` the buckets and
+    the per-row arrays (``excl``, ``gt``, ``gt_len``, ``hist_size``) hold
+    this rank's rows only; ``n_pad`` counts all of them.
     """
 
     by_user: Tuple[Bucket, ...]      # fold-in histories, compact rows
@@ -423,6 +464,7 @@ class FoldInData:
     n_pad: int
     num_items: int
     nnz: int
+    mesh: Optional[mesh_lib.Mesh] = None
 
     @classmethod
     def build(
@@ -437,8 +479,10 @@ class FoldInData:
         growth: int = 2,
         dim: int = 0,
         memory_budget_bytes: int = 2 << 30,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ) -> "FoldInData":
-        device = resolve_device(device)
+        device = mesh_lib.place(device, mesh)
+        row_multiple = row_multiple * mesh_lib.num_shards(mesh)
         max_rows, max_tuples = _bucket_budgets(dim, memory_budget_bytes)
         uniq = np.unique(tr.user_ids)
         n_eval = uniq.size
@@ -480,14 +524,16 @@ class FoldInData:
         hist = np.zeros(n_pad, dtype=np.float32)
         hist[:n_eval] = counts
 
+        lo, hi = mesh_lib.row_range(mesh, n_pad)
         return cls(
-            by_user=tuple(b.to(device) for b in by_user),
-            excl=_t(excl).to(device),
-            gt=_t(gt).to(device),
-            gt_len=_t(gt_len).to(device),
-            hist_size=torch.from_numpy(hist).to(device),
+            by_user=tuple(b.shard(mesh).to(device) for b in by_user),
+            excl=_t(excl[lo:hi]).to(device),
+            gt=_t(gt[lo:hi]).to(device),
+            gt_len=_t(gt_len[lo:hi]).to(device),
+            hist_size=torch.from_numpy(hist[lo:hi]).to(device),
             n_eval=n_eval,
             n_pad=n_pad,
             num_items=num_items,
             nnz=tr.nnz,
+            mesh=mesh,
         )

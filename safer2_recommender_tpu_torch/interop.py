@@ -28,7 +28,10 @@ def state_from_jax(exported: dict, model: Recommender, dd: DeviceData,
     Woodbury eigenbases (its ``state.eig_qu`` / ``state.eig_qv``), so a
     trained state's next epoch refreshes from the same bases. Without it
     the bases are the identity, as in a fresh JAX model. They live in
-    the embedding space, so no reordering applies."""
+    the embedding space, so no reordering applies.
+
+    On a mesh (the model's, which ``dd`` must share) every rank passes
+    the same ``exported`` and ends holding rank 0's tables."""
     uo = dd.user_order.cpu().numpy()
     io = dd.item_order.cpu().numpy()
     dev = model.device
@@ -65,3 +68,4 @@ def state_from_jax(exported: dict, model: Recommender, dd: DeviceData,
         eig_qu=qu,
         eig_qv=qv,
     )
+    model.broadcast_tables()

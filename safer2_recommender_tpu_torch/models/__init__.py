@@ -21,16 +21,18 @@ MODEL_REGISTRY = {
 
 
 def get_model(name: str, cfg, num_users: int, num_items: int,
-              device=DEFAULT_DEVICE):
+              device=DEFAULT_DEVICE, mesh=None):
     """A model of ``name`` on ``device`` (the card unless the caller
-    passes ``device="cpu"``; without CUDA the default raises)."""
+    passes ``device="cpu"``; without CUDA the default raises), its state
+    replicated over ``mesh`` when one is given (``parallel/mesh.py``;
+    the device is then the mesh's)."""
     try:
         cls = MODEL_REGISTRY[name.lower()]
     except KeyError:
         raise ValueError(
             f"unknown model {name!r}; choose from {sorted(MODEL_REGISTRY)}"
         ) from None
-    return cls(cfg, num_users, num_items, device=device)
+    return cls(cfg, num_users, num_items, device=device, mesh=mesh)
 
 
 __all__ = ["MFState", "Recommender", "IALS", "IALSpp", "ERMMF", "CVaRMF",

@@ -5,6 +5,13 @@ Evaluation of a held-out dataset folds in fresh user embeddings with
 the item table frozen, scores the whole catalog in chunks and ranks it
 with history masked out; serving (``recommend``) is the same
 computation returning the top-k ids.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) the model's state is
+replicated: ``initialize`` broadcasts rank 0's tables, every sweep
+shares the rows each rank solved, and the quantile's draws come from a
+generator seeded alike on every rank. Evaluation and ``recommend`` fold
+in every row, then each rank scores its own block of rows and the
+per-user results are gathered, so every rank returns the same numbers.
 """
 
 from __future__ import annotations
@@ -29,10 +36,10 @@ from safer2_recommender_tpu_torch.evaluation.metrics import (
 )
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.ops import assemble, woodbury
+from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
 from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
                                                        f32_matmul,
-                                                       matmul_precision,
-                                                       resolve_device)
+                                                       matmul_precision)
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
@@ -84,7 +91,7 @@ class Recommender:
     name = "base"
 
     def __init__(self, cfg: Config, num_users: int, num_items: int,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, mesh=None):
         if cfg.compute_dtype not in ASM_DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: choose "
                              f"from {sorted(ASM_DTYPES)}")
@@ -94,7 +101,8 @@ class Recommender:
         self.asm_dtype = ASM_DTYPES[cfg.compute_dtype]
         self.num_users = num_users
         self.num_items = num_items
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_lib.place(device, mesh)
         self.print_train_stats = False
         self.print_residual_stats = False
         self.print_var_stats = False
@@ -143,7 +151,34 @@ class Recommender:
     @f32_matmul()
     def initialize(self, dd: DeviceData) -> None:
         """Pre-training warm start; overridden by the SAFER family."""
+        self._start(dd)
+
+    def _start(self, dd: DeviceData) -> None:
+        """The top of every ``initialize``: note the data's permutation
+        and, on a mesh, hand every rank rank 0's tables."""
         self._note_perms(dd)
+        self.broadcast_tables()
+
+    def broadcast_tables(self) -> None:
+        """On a mesh, set every rank's tables to rank 0's (and the
+        Gramian to match), so the replicated state starts equal."""
+        if self.mesh is None:
+            return
+        s = self.state
+        u = mesh_lib.broadcast(self.mesh, s.user_emb.contiguous())
+        v = mesh_lib.broadcast(self.mesh, s.item_emb.contiguous())
+        self.state = s.replace(user_emb=u, item_emb=v,
+                               item_gramian=v.T @ v)
+
+    def _check_mesh(self, data) -> None:
+        """``data`` (a DeviceData or FoldInData) must be sharded over the
+        model's mesh, or neither is sharded."""
+        want, got = self.mesh, data.mesh
+        if (want is None) != (got is None) or (want is not None and (
+                want.world_size, want.rank) != (got.world_size, got.rank)):
+            raise ValueError(
+                f"{type(data).__name__} was built for mesh {got!r}, the "
+                f"model runs on {want!r}: build it with the model's mesh")
 
     def export_state(self, dd: DeviceData = None) -> dict:
         """Numpy view of the model state in ORIGINAL id space:
@@ -234,6 +269,7 @@ class Recommender:
         is remapped into it; another id universe raises."""
         if self._noted_dd_id == id(dd):
             return
+        self._check_mesh(dd)
         fp = _dd_fingerprint(dd)
         old = self._dd_fp
         if old is not None and old != fp and self.state.steps > 0:
@@ -408,12 +444,21 @@ class Recommender:
     ) -> EvaluationResult:
         """Held-out evaluation: fold in fresh user embeddings from
         fold.by_user with items frozen, score the full catalog, mask
-        history, compute Recall/NDCG."""
+        history, compute Recall/NDCG. On a mesh each rank scores its
+        block of rows and the per-user metrics are gathered."""
+        self._check_mesh(fold)
         fold = self._permute_fold(fold)
         ue = self._fold_in(self.state, fold)
-        recall, ndcg = self._eval_metrics(ue, self.state.item_emb, fold,
-                                          k_list=tuple(k_list))
-        keep = _host(fold.gt_len) > 0
+        lo, hi = mesh_lib.row_range(self.mesh, fold.n_pad)
+        recall, ndcg = self._eval_metrics(ue[lo:hi], self.state.item_emb,
+                                          fold, k_list=tuple(k_list))
+        keep = fold.gt_len > 0
+        if self.mesh is not None:
+            k = len(k_list)
+            got = mesh_lib.all_gather_rows(self.mesh, torch.cat(
+                [recall, ndcg, keep[:, None].to(recall.dtype)], dim=1))
+            recall, ndcg, keep = got[:, :k], got[:, k:2 * k], got[:, 2 * k] > 0
+        keep = _host(keep)
         return EvaluationResult(
             k_list=tuple(k_list),
             alpha_list=tuple(alpha_list),
@@ -439,21 +484,27 @@ class Recommender:
         scores stay f32. Evaluation always stays exact.
 
         Returns ``(user_ids [n], item_ids [n, k])`` numpy arrays, rows
-        aligned to the distinct users of ``histories``.
+        aligned to the distinct users of ``histories``. On a mesh every
+        rank returns all of them (each ranks its block of rows).
         """
         if isinstance(histories, Dataset):
             users = np.unique(histories.user_ids)
             empty = Dataset(np.zeros(0, np.int32), np.zeros(0, np.int32))
             fold = FoldInData.build(histories, empty,
                                     num_items=self.num_items,
-                                    device=self.device, dim=self.cfg.dim)
+                                    device=self.device, dim=self.cfg.dim,
+                                    mesh=self.mesh)
         else:
             fold = histories
             users = np.arange(fold.n_eval)
+        self._check_mesh(fold)
         fold = self._permute_fold(fold, cache=False)
         ue = self._fold_in(self.state, fold)
-        ids = self._recommend_ids(ue, self.state.item_emb, fold.excl, k=k,
-                                  approx=approx)
+        lo, hi = mesh_lib.row_range(self.mesh, fold.n_pad)
+        ids = self._recommend_ids(ue[lo:hi], self.state.item_emb, fold.excl,
+                                  k=k, approx=approx)
+        if self.mesh is not None:
+            ids = mesh_lib.all_gather_rows(self.mesh, ids)
         if self._item_order is not None:
             # decode solver-order item ids back to catalog ids
             ids = self._item_order[ids]
@@ -463,8 +514,9 @@ class Recommender:
                        excl: torch.Tensor, *, k: int,
                        approx: bool = False) -> torch.Tensor:
         """Chunked scoring + top-k (bounds the [chunk, num_items] score
-        matrix); full f32, or TF32 on the card for ``approx``."""
-        chunk = self._eval_chunk(ue.shape[0])
+        matrix) of ``ue``, this rank's block of rows (all of them without
+        a mesh); full f32, or TF32 on the card for ``approx``."""
+        chunk = self._rank_chunk(ue.shape[0])
         out = []
         for lo in range(0, ue.shape[0], chunk):
             with matmul_precision("high" if approx else "highest"):
@@ -475,17 +527,29 @@ class Recommender:
 
     def _eval_chunk(self, n_pad: int) -> int:
         """Largest divisor of the fold's padded row count that fits the
-        configured chunk (bounds the [chunk, num_items] score matrix)."""
-        chunk = max(min(self.cfg.eval_chunk, n_pad), 1)
+        configured chunk (bounds the [chunk, num_items] score matrix). On
+        a mesh the chunk is a multiple of the shard count, so it splits
+        evenly over the ranks (``n_pad`` is one already)."""
+        step = mesh_lib.num_shards(self.mesh)
+        chunk = min(self.cfg.eval_chunk, n_pad)
+        chunk = max(chunk - chunk % step, step)
         while n_pad % chunk:
-            chunk -= 1
+            chunk -= step
         return chunk
+
+    def _rank_chunk(self, rows: int) -> int:
+        """One rank's share of ``_eval_chunk`` for its block of ``rows``
+        rows (of ``rows x shards`` in all)."""
+        s = mesh_lib.num_shards(self.mesh)
+        return self._eval_chunk(rows * s) // s
 
     def _eval_metrics(self, ue: torch.Tensor, item_emb: torch.Tensor,
                       fold: FoldInData, *, k_list: Tuple[int, ...]):
-        chunk = self._eval_chunk(fold.n_pad)
+        """Per-row Recall/NDCG of ``ue``, this rank's block of rows, against
+        the fold's rows (the rank's on a mesh)."""
+        chunk = self._rank_chunk(ue.shape[0])
         rec, ndcg = [], []
-        for lo in range(0, fold.n_pad, chunk):
+        for lo in range(0, ue.shape[0], chunk):
             hi = lo + chunk
             # full f32 scoring like the reference's (ials.h:181-183):
             # near-tied items must not reorder inside the top-k
@@ -563,7 +627,7 @@ class SaferFamilyMixin:
         """The SAFER family's Initialize: the per-user (halved) losses of
         the initial tables, so the pre-training state is inspectable;
         ``kw`` are further state fields to set."""
-        self._note_perms(dd)
+        self._start(dd)
         s = self.state
         loss = common.user_losses(s.user_emb, s.item_emb, s.item_gramian,
                                   dd.by_user, dd.num_users,

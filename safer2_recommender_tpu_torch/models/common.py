@@ -19,6 +19,14 @@ embedding rows. Conventions:
 The JAX package's XLA scheduling devices (``zero_token``,
 ``tie_bucket``, ``BucketStack`` scans) have no counterpart: PyTorch
 runs the buckets in order, one after another.
+
+On a mesh (``Bucket.mesh``, a ``parallel/mesh.py::Mesh``) each rank
+holds its block of every bucket's rows and a whole copy of each table.
+A sweep solves the rank's rows into its copy, then ``share_rows`` hands
+every rank the rows the others solved: one collective per sweep (per
+block step in ``block_sweep_interleaved``, whose other side reads every
+row's block). A self-side solve reads only its own rows, so nothing
+else waits for it. Per-row losses travel the same way.
 """
 
 from __future__ import annotations
@@ -32,6 +40,31 @@ import torch
 from safer2_recommender_tpu_torch.data.dataset import Bucket
 from safer2_recommender_tpu_torch.ops import assemble, solve, woodbury
 from safer2_recommender_tpu_torch.ops.woodbury import SolveParams
+from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
+
+
+def share_rows(table: torch.Tensor,
+               buckets: Sequence[Bucket]) -> torch.Tensor:
+    """Every rank's rows of ``buckets`` (its block of each) into every
+    rank's copy of ``table`` ([rows, d] or [rows]), in place: one
+    all-gather of the rows with their ids packed beside them as float32
+    bits (the gather moves bytes, so they arrive exact). Padded rows
+    (sentinel ids) never reach the table. Identity without a mesh (the
+    buckets') or for buckets that are not ``shared``."""
+    if not buckets or buckets[0].mesh is None or not buckets[0].shared:
+        return table
+    mesh = buckets[0].mesh
+    n = table.shape[0]
+    vals = torch.cat([assemble.read_rows(table, b) for b in buckets])
+    ids = torch.cat([b.row_ids for b in buckets]).to(torch.int32)
+    packed = torch.cat([vals.reshape(ids.shape[0], -1),
+                        ids.view(torch.float32)[:, None]], dim=1)
+    got = mesh_lib.all_gather_rows(mesh, packed)
+    rows = got[:, -1].contiguous().view(torch.int32).to(torch.int64)
+    keep = rows < n
+    table[rows[keep]] = got[keep, :-1].reshape(
+        (-1,) + tuple(table.shape[1:]))
+    return table
 
 
 def safe_len(bucket: Bucket) -> torch.Tensor:
@@ -44,11 +77,14 @@ def _solve_groups(buckets: Sequence[Bucket], dim: int,
     """Greedily group bucket indices so one solve batch's live slabs,
     the [rows, d, d] systems and the gathered [rows, L, d] histories,
     stay under the memory budget. A wide bucket gathers one column chunk
-    at a time, so it is costed at ``min(width, WIDE_CHUNK)`` columns."""
+    at a time, so it is costed at ``min(width, WIDE_CHUNK)`` columns. A
+    sharded bucket is costed whole (``Bucket.global_rows``): the batches,
+    and so the rows solved in the rotated basis, are the one-device
+    run's, as in the JAX package."""
     def cost(b):
         w_eff = min(b.width, assemble.WIDE_CHUNK) if (
             assemble.is_wide(b, dim)) else b.width
-        return b.n_rows * (dim * dim * 4 + w_eff * (dim + 1) * 4)
+        return b.global_rows * (dim * dim * 4 + w_eff * (dim + 1) * 4)
 
     cap = max(budget_bytes, 64 * dim * dim * 4)
     groups, cur, used = [], [], 0
@@ -164,7 +200,8 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
     bucket (``_direct_groups``). Without it every bucket is solved
     directly. ``use_cg`` solves the direct systems by batched conjugate
     gradient (``solve.cg_solve`` with ``cg_tol`` / ``cg_iters``), never
-    rotated. ``woodbury.SOLVE_PATHS`` counts the rows of each path."""
+    rotated. ``woodbury.SOLVE_PATHS`` counts the rows of each path. On a
+    mesh the ranks' rows are shared at the end (``share_rows``)."""
     table = table.clone()
     if not buckets:
         return table
@@ -213,12 +250,14 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
             ofs += b.n_rows
             paths["rotated" if g_rot else "direct"] += b.n_rows
             paths["wide"] += b.n_rows if w else 0
-    return table
+    return share_rows(table, buckets)
 
 
 def sweep_apply(buckets: Sequence[Bucket], pre_list, carry, body):
     """``body(carry, bucket, pre) -> carry`` over the buckets in order;
-    ``pre_list`` holds one entry per bucket, or is None."""
+    ``pre_list`` holds one entry per bucket, or is None. A ``carry``
+    that is a table of the buckets' rows is shared on a mesh by the
+    caller (``share_rows``)."""
     if pre_list is None:
         pre_list = [None] * len(buckets)
     if len(pre_list) != len(buckets):
@@ -380,7 +419,8 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
     Every bs x bs (and L x L) system goes through ``solve.solve`` /
     ``block_chol.spd_solve``, so through the inverse-Cholesky kernel: a
     sweep launches it ``dim / bs`` times per bucket. ``emb[:, :, s:s+bs]``
-    is a strided view of the slab; ``torch.bmm`` may copy it.
+    is a strided view of the slab; ``torch.bmm`` may copy it. On a
+    mesh the ranks' rows are shared at the end (``share_rows``).
     """
     table = table_self.clone()
     if not buckets:
@@ -492,7 +532,8 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
              else do_narrow(tbl, b, pre))
         return assemble.scatter_bucket(tbl, b, x)
 
-    return sweep_apply(buckets, pre_list, table, do_bucket)
+    return share_rows(sweep_apply(buckets, pre_list, table, do_bucket),
+                      buckets)
 
 
 # --------------------------------------------------------------------------
@@ -544,7 +585,11 @@ def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
     ``dim % bs == 0`` (the models fall back to the frozen sweep
     otherwise). ``preds_u`` aligns with ``by_user`` and feeds
     ``losses_from_preds``. ``woodbury.SOLVE_PATHS`` counts each bucket's
-    rows once per call under ``block`` (and ``wide``)."""
+    rows once per call under ``block`` (and ``wide``). A side step
+    scatters its deltas into the [rows, bs] delta table, shares them on a
+    mesh (``share_rows``, one collective per side step) and then adds
+    the table to its block of ``tbl_self``: the ranks' copies stay equal
+    and the other view's predictions see every row's delta."""
     dim = u.shape[1]
     if dim % bs:
         raise ValueError(f"interleaved sweep needs dim % bs == 0, got "
@@ -579,7 +624,7 @@ def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
         """StepU / StepV at block offset ``s`` (ialspp.h:85-145,
         safer2pp.h:97-216): delta solves against the live Gramians.
         Updates ``tbl_self`` and ``preds`` in place; returns the
-        [rows, bs] delta table."""
+        [rows, bs] delta table (0 on rows of no bucket)."""
         o_blk = other[:, s:s + bs]
         lhs = o_blk if g_weight is None else o_blk * g_weight[:, None]
         g_lg = lhs.T @ other                       # [bs, dim], live
@@ -634,9 +679,11 @@ def block_sweep_interleaved(u: torch.Tensor, v: torch.Tensor,
                     assemble.row_gramians(emb, col_weight=wt),
                     x_full, x_loc)
                 pred += assemble.rowwise_dot(emb, delta)
-            # x_full and x_loc may be views of the table: written last
-            assemble.scatter_bucket(tbl_self[:, s:s + bs], b, x_loc + delta)
             assemble.scatter_bucket(dacc, b, delta)
+        # a bucket reads only its own rows of tbl_self, so the block is
+        # updated once, after every bucket: old + delta, as a write-back
+        # of x_loc + delta would give, and old + 0 elsewhere
+        tbl_self[:, s:s + bs] += share_rows(dacc, buckets)
         return dacc
 
     def propagate(buckets, preds, dacc, tbl_self, s) -> None:
@@ -672,7 +719,7 @@ def losses_from_preds(preds_u, by_user: Sequence[Bucket], u: torch.Tensor,
     ``block_sweep_interleaved``, the counterpart of the reference's
     cache-based ComputeUserLoss (safer2pp.h:611-652):
     sum_h (pred - 1)^2 [/ |H| if mean] + uobs * u^T G u [x 0.5 if
-    halve]. Absent users keep loss 0."""
+    halve]. Absent users keep loss 0. Shared on a mesh."""
     out = torch.zeros((num_users,), dtype=torch.float32, device=u.device)
     for b, p in zip(by_user, preds_u):
         mask = assemble.history_mask(b)
@@ -684,7 +731,7 @@ def losses_from_preds(preds_u, by_user: Sequence[Bucket], u: torch.Tensor,
         if halve:
             loss = loss * 0.5
         assemble.scatter_bucket_vector(out, b, loss)
-    return out
+    return share_rows(out, by_user)
 
 
 # --------------------------------------------------------------------------
@@ -722,7 +769,9 @@ def gather_and_losses(table_other: torch.Tensor, buckets, probe_table,
 
     Returns ``(loss [num_rows], pre_list or None)``, one ``pre`` entry
     per bucket. The slabs are gathered from ``table_other`` cast to
-    ``dtype`` once, and the budget counts their bytes in it."""
+    ``dtype`` once, and the budget counts their bytes in it. On a
+    mesh the losses are shared (every rank holds them whole) and the
+    slabs are the rank's own buckets'."""
     dim = table_other.shape[1]
     table_other = assemble.cast(table_other, dtype)
     # wide (streamed) buckets keep no slab and get a None entry
@@ -749,7 +798,7 @@ def gather_and_losses(table_other: torch.Tensor, buckets, probe_table,
         assemble.scatter_bucket_vector(out, b, loss)
         if keep:
             pre.append(None if emb is None else (emb, mask))
-    return out, pre
+    return share_rows(out, buckets), pre
 
 
 def ials_reg(length: torch.Tensor, num_choices: int, reg: float,

@@ -33,7 +33,8 @@ class CVaRMF(SaferFamilyMixin, Recommender):
 
     def _grad_step_u(self, ue, item_emb, gramian, buckets, dual,
                      pre_list=None):
-        """Returns a NEW user table one gradient step from ``ue``."""
+        """Returns a NEW user table one gradient step from ``ue`` (the
+        ranks' rows shared on the buckets' mesh)."""
         cfg = self.cfg
         reg = self._user_reg()
         item_emb = assemble.cast(item_emb, self.asm_dtype)   # once a sweep
@@ -48,7 +49,9 @@ class CVaRMF(SaferFamilyMixin, Recommender):
             return assemble.scatter_bucket(ue, b,
                                            u_rows - cfg.stepsize * grad)
 
-        return common.sweep_apply(buckets, pre_list, ue.clone(), body)
+        return common.share_rows(
+            common.sweep_apply(buckets, pre_list, ue.clone(), body),
+            buckets)
 
     def _grad_step_v(self, v, user_emb, dd: DeviceData, dual):
         """Returns a NEW item table one gradient step from ``v``."""
@@ -67,7 +70,9 @@ class CVaRMF(SaferFamilyMixin, Recommender):
             return assemble.scatter_bucket(v, b,
                                            v_rows - cfg.stepsize * grad)
 
-        return common.sweep_apply(dd.by_item, None, v.clone(), body)
+        return common.share_rows(
+            common.sweep_apply(dd.by_item, None, v.clone(), body),
+            dd.by_item)
 
     def _epoch(self, state: MFState, dd: DeviceData) -> MFState:
         """Phase-shifted like ``SAFER2._epoch``: the reference's trailing

@@ -20,6 +20,7 @@ import torch
 
 from safer2_recommender_tpu_torch.data.dataset import DeviceData
 from safer2_recommender_tpu_torch.ops import assemble
+from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
@@ -44,6 +45,9 @@ def loss_decomposition(
         emb, mask = assemble.gather_history(item_emb, b)
         p = assemble.rowwise_dot(emb, u)
         loss_observed = loss_observed + (torch.square(p - 1.0) * mask).sum()
+    if dd.mesh is not None:
+        # each rank summed its own rows
+        mesh_lib.all_reduce_sum(dd.mesh, loss_observed)
 
     u_present = (dd.user_hist_size > 0).to(torch.float32)
     i_present = (dd.item_hist_size > 0).to(torch.float32)

@@ -40,9 +40,10 @@ WIDE_CHUNK = 4096
 def is_wide(bucket: Bucket, dim: int) -> bool:
     """Stream this bucket through column chunks? Only when the *width*
     is the problem (width > dim keeps it off the Woodbury path; narrow
-    slabs are bounded by build-time chunking)."""
+    slabs are bounded by build-time chunking). Decided on the whole
+    bucket's shape, on a mesh too (``Bucket.global_rows``)."""
     return bucket.width > dim and (
-        bucket.n_rows * bucket.width * (dim + 1) * 4 > WIDE_SLAB_BYTES)
+        bucket.global_rows * bucket.width * (dim + 1) * 4 > WIDE_SLAB_BYTES)
 
 
 def history_mask(bucket: Bucket) -> torch.Tensor:

@@ -42,6 +42,13 @@ counts none, and each replay adds the launches the capture recorded.
 batch k. Batch k's ids are queued for copy into a pinned host buffer of
 its own, with an event, before batch k+1's replay overwrites the output
 buffer; the fetch waits on that event.
+
+On a mesh (the model's ``mesh``) the rung sizes are multiples of 8 x
+shards and every rank packs the whole batch, then keeps its block of
+each bucket's rows: its program folds in and ranks those rows alone (a
+CUDA graph holds the rank's compute, never a collective: gloo's cannot
+be captured), and the ids are all-gathered after the replay, so every
+rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -57,14 +64,11 @@ from safer2_recommender_tpu_torch.data.dataset import (Bucket, Dataset,
                                                        _round_up,
                                                        _segment_arange)
 from safer2_recommender_tpu_torch.ops import block_chol
+from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
 from safer2_recommender_tpu_torch.utils.device import f32_matmul
 from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
 
 _log = logging.getLogger(LOGGER_NAME)
-
-# Rung sizes are multiples of 8 (the eval-chunk logic wants it; the port
-# has no mesh axis to divide over).
-_MULT = 8
 
 
 def _next_pow2(x: int) -> int:
@@ -109,11 +113,14 @@ class _Program:
                 f"col{j}": torch.zeros((B, W), **i64),
                 f"length{j}": torch.zeros(B, **i64)})
             # a contiguous bucket: its write-back is a slice of the
-            # fold-in table, never a masked scatter (a host read)
+            # fold-in table, never a masked scatter (a host read); on a
+            # mesh, the rank's block of the batch's bucket, solved into
+            # the rank's own table (no row is shared)
             buckets.append(Bucket(row_ids=self.inputs[f"row{j}"],
                                   col_ids=self.inputs[f"col{j}"],
                                   length=self.inputs[f"length{j}"],
-                                  row_start=start, contiguous=True))
+                                  row_start=start, contiguous=True,
+                                  mesh=model.mesh, shared=False))
             start += B
         # gt, gt_len and hist_size are read by evaluation only
         fold = FoldInData(
@@ -140,11 +147,18 @@ class _Program:
             self._capture(server, shapes)
 
     def _capture(self, server: "Server", shapes) -> None:
-        side = torch.cuda.Stream(self.inputs["excl"].device)
-        side.wait_stream(torch.cuda.current_stream())
+        # the model's card, whichever is current (torch.cuda.graph
+        # captures on a stream of the current device)
+        dev = self.inputs["excl"].device
+        with torch.cuda.device(dev):
+            self._capture_on(server, shapes, dev)
+
+    def _capture_on(self, server: "Server", shapes, dev) -> None:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.fn()       # warm-up: builds kernels, loads modules
-        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.current_stream(dev).wait_stream(side)
         if server._pool is None:
             # one pool for every program's graph: a replay may reuse
             # another graph's scratch, which is safe because each
@@ -202,8 +216,11 @@ class Server:
         self.model = model
         self.k = int(k)
         self.approx = bool(approx)
+        # rung sizes split evenly over the mesh, in multiples of 8
+        self._mult = 8 * mesh_lib.num_shards(model.mesh)
         self.batch_sizes = tuple(sorted(
-            {max(_round_up(int(b), _MULT), _MULT) for b in batch_sizes}))
+            {max(_round_up(int(b), self._mult), self._mult)
+             for b in batch_sizes}))
         self.widths = tuple(sorted({int(w) for w in widths}))
         self.replays = 0
         self._programs: Dict[tuple, _Program] = {}
@@ -262,7 +279,7 @@ class Server:
 
     def programs(self) -> Dict[tuple, _Program]:
         """The built programs by shape key: one (B, W) rung pair per
-        bucket."""
+        bucket (B the rank's rows of the rung on a mesh)."""
         return dict(self._programs)
 
     def _rung(self, ladder: Tuple[int, ...], x: int) -> int:
@@ -272,7 +289,7 @@ class Server:
         # beyond the ladder: the next power of two (built once, then
         # reused like any other rung); logged because a production
         # ladder should be sized to its traffic
-        r = max(_round_up(_next_pow2(x), _MULT), _MULT)
+        r = max(_round_up(_next_pow2(x), self._mult), self._mult)
         _log.info("serving shape ladder extended to %d (request "
                   "exceeded %d)", r, ladder[-1])
         return r
@@ -355,7 +372,37 @@ class Server:
         for r, off, got in parts:
             excl[r, off] = got
         packed["excl"] = excl
+        if self.model.mesh is not None:
+            return self._shard(shapes, packed, rows)
         return tuple(shapes), packed, rows
+
+    def _shard(self, shapes, packed, rows):
+        """This rank's block of each bucket of a packed batch: its shape
+        key, its packed arrays (the buckets' blocks as consecutive row
+        ranges of the rank's fold-in table) and, for each user, the row
+        of the ids all-gathered from every rank in rank order."""
+        mesh = self.model.mesh
+        s = mesh.world_size
+        local = [b // s for b, _ in shapes]
+        n_loc = sum(local)
+        out, src, excl = {}, [], []
+        start = lstart = 0
+        for j, ((b, w), bl) in enumerate(zip(shapes, local)):
+            lo, hi = mesh_lib.row_range(mesh, b)
+            row = packed[f"row{j}"][lo:hi]
+            out[f"row{j}"] = np.where(row < b, row - lo, bl)
+            out[f"col{j}"] = packed[f"col{j}"][lo:hi]
+            out[f"length{j}"] = packed[f"length{j}"][lo:hi]
+            excl.append(packed["excl"][start + lo:start + hi])
+            # global row start + r * bl + i is gathered row
+            # r * n_loc + lstart + i
+            src.append((np.arange(s)[:, None] * n_loc + lstart
+                        + np.arange(bl)[None, :]).reshape(-1))
+            start += b
+            lstart += bl
+        out["excl"] = np.concatenate(excl)
+        return (tuple((bl, w) for bl, (_, w) in zip(local, shapes)), out,
+                np.concatenate(src)[rows])
 
     # ---- serving surface ----------------------------------------------------
 
@@ -378,12 +425,15 @@ class Server:
                     src = {k: v.pin_memory() for k, v in src.items()}
                 ids = prog.run(src)
                 self.replays += 1
+                if self.model.mesh is not None:
+                    # after the replay: the graph holds no collective
+                    ids = mesh_lib.all_gather_rows(self.model.mesh, ids)
                 if on_card:
                     host = torch.empty(ids.shape, dtype=ids.dtype,
                                        pin_memory=True)
                     host.copy_(ids, non_blocking=True)
                     done = torch.cuda.Event()
-                    done.record()
+                    done.record(torch.cuda.current_stream(ids.device))
                     # src stays referenced until the copies have run
                     out.append((users, rows, host, done, src))
                 else:

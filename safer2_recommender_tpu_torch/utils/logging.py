@@ -15,20 +15,27 @@ import time
 import torch
 
 LOGGER_NAME = "safer2_recommender_tpu_torch"
+_HANDLER = LOGGER_NAME + ".stderr"
 
 
 def get_logger() -> logging.Logger:
     return logging.getLogger(LOGGER_NAME)
 
 
-def setup(level: int = logging.INFO) -> logging.Logger:
+def setup(level: int = logging.INFO, mesh=None) -> logging.Logger:
+    """The package logger on stderr, its prefix naming the rank on a
+    ``mesh`` (``... safer2_recommender_tpu_torch rank 1/2] msg``)."""
     log = get_logger()
     if not log.handlers:
         h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter(
-            "%(levelname).1s%(asctime)s %(name)s] %(message)s",
-            datefmt="%m%d %H:%M:%S"))
+        h.name = _HANDLER
         log.addHandler(h)
+    where = "" if mesh is None else f" rank {mesh.rank}/{mesh.world_size}"
+    for h in log.handlers:
+        if h.name == _HANDLER:
+            h.setFormatter(logging.Formatter(
+                "%(levelname).1s%(asctime)s %(name)s" + where
+                + "] %(message)s", datefmt="%m%d %H:%M:%S"))
     # our handler owns these lines; propagating to a configured root
     # logger would emit every line twice in embedding applications
     log.propagate = False
@@ -43,10 +50,11 @@ class Timer:
 
     def __init__(self, device=None):
         self._cuda = device is not None and torch.device(device).type == "cuda"
+        self._device = device
 
     def _now(self) -> float:
         if self._cuda:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self._device)
         return time.perf_counter()
 
     def __enter__(self):

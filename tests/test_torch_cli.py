@@ -1,7 +1,8 @@
 """The port's CLI (python -m safer2_recommender_tpu_torch.cli) on the
 bundled ML-1M split, on the CPU: the JAX CLI's line formats, refused
-flags of unported features, --profile_dir, --compute_dtype bf16, and no
-silent fall-back from CUDA."""
+arguments, --profile_dir, --compute_dtype bf16, and no silent fall-back
+from CUDA. --mesh and --distributed run in
+tests/test_torch_distributed.py."""
 
 import os
 import re
@@ -75,16 +76,6 @@ def _refused(argv, capsys):
         cli.run(base + argv)
     assert exc.value.code != 0
     return capsys.readouterr().err
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], "item 19"),
-    (["--distributed", "1"], "item 19"),
-])
-def test_cli_refuses_unported_flags(flags, item, capsys):
-    err = _refused(["--model_name", "safer2", "--device", "cpu"] + flags,
-                   capsys)
-    assert "not ported to PyTorch yet" in err and item in err
 
 
 def test_cli_profile_dir_writes_a_trace_of_the_training_loop(tmp_path):

@@ -82,7 +82,8 @@ Phases, each printing lines to stdout tagged with its name:
      DeviceData built) and served by a Server(k=10), one CUDA graph per
      rung pair, over 8 request batches of 1-1000 held-out users (sizes
      from a fixed seed): ids equal to the trained model's recommend() on
-     each batch but for swaps of items whose scores lie within TIE_TOL of
+     each batch but for swaps of items whose scores lie within
+     probes/serving_scale.py's TIE_TOL of
      the row's top score (counted), no history item, the graph's ids
      bit-identical to the
      same program run eagerly, no new graph after the first pass,
@@ -104,8 +105,9 @@ Phases, each printing lines to stdout tagged with its name:
      device memory, rows through the column-chunked route (> 0), the
      launch count of every epoch as in phase 12, launches by r and N
      against one wave;
- 18. probe: the batched-dot probe (probes/bdot.py), the bdot kernel's
-     own path: at [4096, h, h] and 8 dots, each precision per call and
+ 18. probe (run after phase 23): the batched-dot probe
+     (probes/bdot.py), the bdot kernel's own path: at [4096, h, h] and
+     8 dots, each precision per call and
      from a CUDA graph beside its bound, its plain version and
      torch.linalg.matrix_power (f32, or TF32 for "default"); then plain
      torch.matmul at the dim-512 solver's products;
@@ -116,7 +118,8 @@ Phases, each printing lines to stdout tagged with its name:
      phases 12 and 17, the served paths of phases 15 and 16 and each
      rank's shapes of phase 20's (b) and (c) included), compared and
      timed as in phase 3, and compared at every other shape the served
-     and meshed paths gave it;
+     and meshed paths gave it; the largest and the most frequent shape
+     of phases 21 and 22 and of the served path of 23 are timed too;
  19. bf16 (run between phases 14 and 16): compute_dtype="bf16" beside
      float32. ML-1M SAFER2 at dim 512, the README config, 10 epochs
      through the CLI with --compute_dtype bf16 (saving a checkpoint),
@@ -161,6 +164,29 @@ Phases, each printing lines to stdout tagged with its name:
      recorded. (d) --mesh (device count +
      1) exits non-zero with the JAX CLI's "exceeds" message. No check
      here times more than one card.
+ 21. msd (after phase 20): the full synthetic MSD workload
+     (probes/scale.py: 571,355 users x 41,140 items, ~20.3M tuples, seed
+     0) at dim 512 and the MSD config through the library API: SAFER2
+     (one warm-up and 2 timed epochs), iALS and iALS++ (block 64; one
+     warm-up and one timed epoch each). Per model the set-up's host
+     seconds, buckets and direct solve batches per side, initialize and
+     epoch ms, users/s, rows by path, kernel launches by r and under one
+     wave, peak memory beside the card's; finite tables, Woodbury and
+     wide rows, r = 64 launches for iALS++, SAFER2's mean dual weight
+     within alpha +/- 0.02 after the last epoch;
+ 22. eval-msd: the MSD protocol's 50,000 held-out users
+     (probes/eval_scale.py::heldout_fold) evaluated by phase 21's SAFER2
+     and iALS++ (8 blockwise fold-in sweeps, r = 64 launches):
+     evaluate_dataset first and warm, fold-in and scoring ms apart, peak
+     memory; finite metrics in [0, 1]; the first 2,048 held-out users
+     as a fold of their own give the same per-user Recall@20 / NDCG@20
+     as the whole fold, but for rows whose top 20 differ by near-tie
+     swaps (TIE_TOL), counted;
+ 23. serve-msd: probes/serving_scale.py::serve with phase 21's SAFER2 on
+     1,000 new users (bench_serving.py's draw): recommend(k=100) exact
+     and approx, first call and best of 3, and a Server(k=100), its p50;
+     ids in range and outside each user's history, the Server's ids
+     equal to recommend()'s but for near-tie swaps.
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -241,13 +267,6 @@ GRAM_REL_TOL = 1e-5
 INTERLEAVED_EPOCHS = 50
 CG_EPOCHS_DIM512 = 3
 SERVE_SEED = 6
-# A served row may swap two items whose scores under recommend()'s own
-# fold-in lie within TIE_TOL of the row's top score: the Server pads a
-# batch to its rung widths, recommend() to its length buckets, and the
-# reductions over the padded history axis round differently (one such
-# swap in ~1,500 rows of the interleaved dim-512 SAFER2++, scores 7e-7
-# apart). Any other difference fails.
-TIE_TOL = 1e-5
 SERVE_BATCHES = 8
 P50_REPEATS = 11
 
@@ -317,22 +336,6 @@ def time_at(chol_probe, device, shape):
     row = chol_probe.measure(a, ridge)
     row.update(max_abs_err=e["max_abs_err"], max_rel_err=e["max_rel_err"])
     return row
-
-
-def launch_histogram(shapes, wave):
-    """{r: {"launches", "below_one_wave", "n_bins": {"[lo, hi)": count}}}
-    of recorded [N, r, r] shapes; wave[r] is the systems the card holds
-    at once at that r."""
-    hist = {}
-    for n, r, _ in shapes:
-        h = hist.setdefault(r, {"launches": 0, "below_one_wave": 0,
-                                "one_wave": wave[r], "n_bins": {}})
-        h["launches"] += 1
-        h["below_one_wave"] += n < wave[r]
-        lo = 1 << max(n, 1).bit_length() - 1
-        key = f"[{lo}, {2 * lo})"
-        h["n_bins"][key] = h["n_bins"].get(key, 0) + 1
-    return {r: hist[r] for r in sorted(hist)}
 
 
 def median(xs):
@@ -477,23 +480,6 @@ def phase_bdot(bdot, device):
 
 
 @contextlib.contextmanager
-def recorded_chol_shapes(block_chol):
-    """Record the [N, r, r] shapes the wrapped path hands the kernel
-    wrapper (the shim counts nothing; the wrapper's LAUNCHES does)."""
-    shapes, wrapper = [], block_chol.chol_inverse_small
-
-    def recording(a, ridge):
-        shapes.append(tuple(a.shape))
-        return wrapper(a, ridge)
-
-    block_chol.chol_inverse_small = recording
-    try:
-        yield shapes
-    finally:
-        block_chol.chol_inverse_small = wrapper
-
-
-@contextlib.contextmanager
 def launches_per_epoch(block_chol):
     """Record, for each ``train_epoch`` call while open, the kernel
     launches by r it made and the DeviceData's bucket count (user +
@@ -573,12 +559,13 @@ def phase_dim512(cli, block_chol, woodbury):
     the warm refresh, and the r = 8..64 kernel launches they make."""
     import torch
 
+    from safer2_recommender_tpu_torch import probes
     from safer2_recommender_tpu_torch.probes import cuda_ms
 
     torch.cuda.reset_peak_memory_stats()
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
-    with recorded_chol_shapes(block_chol) as shapes:
+    with probes.recorded_chol_shapes() as shapes:
         res = train(cli, 512, DIM512_EPOCHS)
     launches = dict(block_chol.LAUNCHES)
     paths = dict(woodbury.SOLVE_PATHS)
@@ -626,7 +613,7 @@ def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
     device memory. ``workload`` is ``(Dataset, DeviceData, Config)``."""
     import torch
 
-    from safer2_recommender_tpu_torch import get_model
+    from safer2_recommender_tpu_torch import get_model, probes
 
     ds, dd, cfg = workload
     model = get_model("safer2", cfg, ds.num_users, ds.num_items,
@@ -636,7 +623,7 @@ def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
     epoch_ms, weights = [], []
-    with recorded_chol_shapes(block_chol) as shapes:
+    with probes.recorded_chol_shapes() as shapes:
         model.initialize(dd)
         for _ in range(epochs):
             torch.cuda.synchronize()
@@ -724,7 +711,7 @@ def phase_synth_models(block_chol, woodbury, device, workload, wave):
     dim / 2. ``wave[r]`` is the systems the card holds at once."""
     import torch
 
-    from safer2_recommender_tpu_torch import get_model
+    from safer2_recommender_tpu_torch import get_model, probes
 
     ds, dd, cfg = workload
     hist, sizes = longest_histories(ds, 256)
@@ -738,7 +725,7 @@ def phase_synth_models(block_chol, woodbury, device, workload, wave):
         block_chol.reset_launches()
         woodbury.reset_solve_paths()
         epoch_ms, fold = [], None
-        with recorded_chol_shapes(block_chol) as shapes:
+        with probes.recorded_chol_shapes() as shapes:
             model.initialize(dd)
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -777,7 +764,7 @@ def phase_synth_models(block_chol, woodbury, device, workload, wave):
             check(train_launches[r_blk] > 0 and train_paths["block"] > 0,
                   f"{name}: no r = {r_blk} block solve in training: "
                   f"{train_launches} {train_paths}")
-        by_r = launch_histogram(shapes, wave)
+        by_r = probes.launch_histogram(shapes, wave)
         under = {r: h["below_one_wave"] for r, h in by_r.items()}
         say("synth50k-models", f"{name}, dim {cfg.dim}, block "
             f"{cfg.block_size}: warm-up epoch {epoch_ms[0]:.1f} ms, then "
@@ -813,6 +800,8 @@ def phase_interleaved(cli, block_chol, woodbury, ckpt_root):
     r = bs in every epoch."""
     import torch
 
+    from safer2_recommender_tpu_torch import probes
+
     out, trained = {}, {}
     runs = (
         ("safer2pp_interleaved", 512, INTERLEAVED_EPOCHS,
@@ -823,7 +812,7 @@ def phase_interleaved(cli, block_chol, woodbury, ckpt_root):
         torch.cuda.reset_peak_memory_stats()
         block_chol.reset_launches()
         woodbury.reset_solve_paths()
-        with recorded_chol_shapes(block_chol) as shapes, \
+        with probes.recorded_chol_shapes() as shapes, \
                 launches_per_epoch(block_chol) as per_epoch:
             res = train(cli, dim, epochs, args + INTERLEAVED,
                         ckpt=os.path.join(ckpt_root, tag))
@@ -890,7 +879,7 @@ def phase_interleaved50k(block_chol, woodbury, device, workload, wave):
     the column-chunked route, launches by r and N against one wave."""
     import torch
 
-    from safer2_recommender_tpu_torch import get_model
+    from safer2_recommender_tpu_torch import get_model, probes
 
     ds, dd, cfg = workload
     cfg = cfg.replace(block_interleaved=True)
@@ -901,7 +890,7 @@ def phase_interleaved50k(block_chol, woodbury, device, workload, wave):
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
     epoch_ms, weights = [], []
-    with recorded_chol_shapes(block_chol) as shapes, \
+    with probes.recorded_chol_shapes() as shapes, \
             launches_per_epoch(block_chol) as per_epoch:
         model.initialize(dd)
         for _ in range(3):
@@ -920,7 +909,7 @@ def phase_interleaved50k(block_chol, woodbury, device, workload, wave):
                                cfg.block_size, cfg.block_size)
     check(len(shapes) == sum(launches.values()),
           "interleaved50k: launches do not match calls")
-    by_r = launch_histogram(shapes, wave)
+    by_r = probes.launch_histogram(shapes, wave)
     say("interleaved50k", f"safer2pp --block_interleaved, {ds.num_users} "
         f"users x {ds.num_items} items, dim {cfg.dim}, block "
         f"{cfg.block_size}, MSD config: warm-up epoch {epoch_ms[0]:.1f} ms, "
@@ -1017,56 +1006,28 @@ def restore_fresh(trained, ckpt_dir):
     return fresh, epoch
 
 
-def near_tie(model, batch, row, a, b) -> bool:
-    """Do the id lists ``a`` and ``b`` of row ``row`` of ``batch`` differ
-    only by swaps of items whose scores, under recommend()'s own fold-in
-    of that row, lie within TIE_TOL of the row's top score?"""
-    import numpy as np
-    import torch
-
-    from safer2_recommender_tpu_torch.data.dataset import Dataset, FoldInData
-    from safer2_recommender_tpu_torch.utils.device import f32_matmul
-
-    empty = Dataset(np.zeros(0, np.int32), np.zeros(0, np.int32))
-    fold = model._permute_fold(FoldInData.build(
-        batch, empty, num_items=model.num_items, device=model.device,
-        dim=model.cfg.dim), cache=False)
-    with f32_matmul():
-        ue = model._fold_in(model.state, fold)[row]
-    perm = model._item_perm
-    ids = np.union1d(a, b)
-    solver = torch.as_tensor(ids, device=ue.device)
-    if perm is not None:
-        solver = perm[solver]
-    with f32_matmul():
-        score = dict(zip(ids.tolist(),
-                         (model.state.item_emb[solver] @ ue).tolist()))
-    top = max(abs(v) for v in score.values())
-    return all(abs(score[x] - score[y]) <= TIE_TOL * top
-               for x, y in zip(a.tolist(), b.tolist()) if x != y)
-
-
 def check_served(tag, model, batch, got, want) -> int:
     """Server ids ``got`` against recommend()'s ``want`` on ``batch``:
     the same users, no history item, and the same ids but for near-tie
-    swaps (``near_tie``). Returns the rows with such a swap."""
+    swaps (``probes/serving_scale.py::tie_rows``: items whose scores
+    under recommend()'s own fold-in lie within TIE_TOL of the row's top
+    score). Returns the rows with such a swap."""
     import numpy as np
+
+    from safer2_recommender_tpu_torch.probes import serving_scale
 
     (gu, gids), (wu, wids) = got, want
     check(np.array_equal(gu, wu), f"{tag}: users differ from recommend()")
     check(gids.shape == wids.shape, f"{tag}: shape {gids.shape}")
-    check(bool(((gids >= 0) & (gids < model.num_items)).all()),
-          f"{tag}: item id out of range")
-    seen = set(zip(batch.user_ids.tolist(), batch.item_ids.tolist()))
-    check(not any((u, i) in seen
-                  for u, row in zip(gu.tolist(), gids.tolist())
-                  for i in row), f"{tag}: a history item was recommended")
-    rows = np.flatnonzero((gids != wids).any(axis=1))
-    ties = [j for j in rows if near_tie(model, batch, j, gids[j], wids[j])]
-    check(len(ties) == rows.size, f"{tag}: {rows.size - len(ties)} of "
+    out_of_range, in_history = serving_scale.bad_ids(batch, gu, gids,
+                                                     model.num_items)
+    check(out_of_range == 0, f"{tag}: item id out of range")
+    check(in_history == 0, f"{tag}: a history item was recommended")
+    rows, ties = serving_scale.tie_rows(model, batch, gids, wids)
+    check(ties.size == rows.size, f"{tag}: {rows.size - ties.size} of "
           f"{gids.shape[0]} rows differ from recommend() by more than a "
-          f"near-tie swap (TIE_TOL {TIE_TOL:g})")
-    return len(ties)
+          f"near-tie swap (TIE_TOL {serving_scale.TIE_TOL:g})")
+    return int(ties.size)
 
 
 def release_graphs() -> None:
@@ -1135,11 +1096,11 @@ def serve_model(tag, model, server_model, batches, b64, block_chol, device,
     import numpy as np
     import torch
 
-    from safer2_recommender_tpu_torch import Server
+    from safer2_recommender_tpu_torch import Server, probes
 
     srv = Server(server_model, k=10)
     block_chol.reset_launches()
-    with recorded_chol_shapes(block_chol) as shapes:
+    with probes.recorded_chol_shapes() as shapes:
         first = [srv.recommend(b) for b in batches]
     sync(device)
     launches = dict(block_chol.LAUNCHES)
@@ -1225,6 +1186,8 @@ def serve_model(tag, model, server_model, batches, b64, block_chol, device,
 
 
 def describe_served(r) -> str:
+    from safer2_recommender_tpu_torch.probes.serving_scale import TIE_TOL
+
     return (f"{r['users_per_s']:.1f} users/s over batches of "
             f"{r['batch_users']} (second pass, synchronized host clock; ms "
             f"per batch {[round(t, 2) for t in r['batch_ms']]}); "
@@ -1287,10 +1250,12 @@ def phase_bf16_ml1m(cli, block_chol, woodbury, f32, ckpt):
     gates, and the same kernel launches, shape for shape."""
     import torch
 
+    from safer2_recommender_tpu_torch import probes
+
     torch.cuda.reset_peak_memory_stats()
     block_chol.reset_launches()
     woodbury.reset_solve_paths()
-    with recorded_chol_shapes(block_chol) as shapes:
+    with probes.recorded_chol_shapes() as shapes:
         res = train(cli, 512, DIM512_EPOCHS, README_ARGS + BF16, ckpt=ckpt)
     bf = run_facts(res, dict(block_chol.LAUNCHES), shapes,
                    dict(woodbury.SOLVE_PATHS),
@@ -1536,13 +1501,15 @@ def phase_mesh_cli(cli, block_chol, ndcg512, shapes512):
     dim512 run again, its NDCG@20 and launch shapes against phase 9's."""
     import torch.distributed as dist
 
+    from safer2_recommender_tpu_torch import probes
+
     env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     block_chol.reset_launches()
     try:
-        with recorded_chol_shapes(block_chol) as shapes:
+        with probes.recorded_chol_shapes() as shapes:
             res = train(cli, 512, DIM512_EPOCHS,
                         args=README_ARGS + ["--distributed", "1"])
         mesh = res.model.mesh
@@ -1629,7 +1596,7 @@ def mesh_rank(mesh, root: str, tmp: str, synth, cfg) -> dict:
 
     sys.path.insert(0, root)
     from safer2_recommender_tpu_torch import (Dataset, DeviceData,
-                                              get_model, interop)
+                                              get_model, interop, probes)
     from safer2_recommender_tpu_torch.data.synth import powerlaw_dataset
     from safer2_recommender_tpu_torch.ops import block_chol
     from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
@@ -1651,7 +1618,7 @@ def mesh_rank(mesh, root: str, tmp: str, synth, cfg) -> dict:
         sync(dev)
         block_chol.reset_launches()
         mesh.traffic.reset()
-        with recorded_chol_shapes(block_chol) as shapes:
+        with probes.recorded_chol_shapes() as shapes:
             t1 = time.perf_counter()
             model.train_epoch(dd)
             sync(dev)
@@ -1703,14 +1670,14 @@ def mesh_serve(model, ds, dev, block_chol) -> dict:
     kernel's shapes of both recorded (the rank's)."""
     import numpy as np
 
-    from safer2_recommender_tpu_torch import Server
+    from safer2_recommender_tpu_torch import Server, probes
 
     rng = np.random.default_rng(SERVE_SEED)
     longest, _ = longest_histories(ds, 256)
     batches = [longest] + user_batches(ds, rng, [1024])
     srv = Server(model, k=10)
     got, ties, ms = [], 0, []
-    with recorded_chol_shapes(block_chol) as shapes:
+    with probes.recorded_chol_shapes() as shapes:
         for i, batch in enumerate(batches):
             sync(dev)
             t0 = time.perf_counter()
@@ -1734,7 +1701,7 @@ def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
     import numpy as np
     import torch
 
-    from safer2_recommender_tpu_torch import get_model, parallel
+    from safer2_recommender_tpu_torch import get_model, parallel, probes
     from safer2_recommender_tpu_torch.parallel import audit
 
     ds, dd, cfg = workload
@@ -1747,7 +1714,7 @@ def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
             np.savez(os.path.join(tmp, f"{name}_init.npz"),
                      **model.export_state(dd))
             block_chol.reset_launches()
-            with recorded_chol_shapes(block_chol) as shapes:
+            with probes.recorded_chol_shapes() as shapes:
                 sync(device)
                 t0 = time.perf_counter()
                 model.train_epoch(dd)
@@ -1876,6 +1843,97 @@ def phase_mesh_refused():
     return dict(rc=res.returncode, message=want)
 
 
+MSD_DIM = 512
+# [msd]: each model's timed epochs after its warm-up epoch
+MSD_EPOCHS = {"safer2": 2, "ials": 1, "ialspp": 1}
+MSD_KEEP = ("safer2", "ialspp")      # evaluated by [eval-msd]
+MSD_SERVE_USERS = 1000
+
+
+def phase_msd(device, wave):
+    """[msd]: SAFER2, iALS and iALS++ (block 64) at dim 512 on the full
+    synthetic MSD workload (``probes/scale.py``: 571,355 x 41,140,
+    ~20.3M tuples) at the MSD config; returns the workload, the readings
+    and the SAFER2 and iALS++ models."""
+    import torch
+
+    from safer2_recommender_tpu_torch.probes import scale
+
+    wl = scale.build(scale.MSD_USERS, scale.MSD_ITEMS, MSD_DIM, device)
+    say("msd", scale.describe_workload(wl))
+    out, keep = {}, {}
+    for name, epochs in MSD_EPOCHS.items():
+        r = scale.train(wl, name, epochs, wave)
+        model = r.pop("model")
+        say("msd", scale.describe(r))
+        launches, paths = r["launches"], r["paths"]
+        check(r["finite"], f"msd {name}: nonfinite tables")
+        check(len(r["shapes"]) == sum(launches.values()) > 0,
+              f"msd {name}: launches {launches} for {len(r['shapes'])} calls")
+        check(paths["woodbury"] > 0 and paths["wide"] > 0,
+              f"msd {name}: no Woodbury or no wide rows: {paths}")
+        if name == "safer2":
+            check(abs(r["mean_dual"] - ALPHA) <= DUAL_TOL,
+                  f"msd safer2: mean dual weight {r['mean_dual']} left "
+                  f"{ALPHA} +/- {DUAL_TOL} after the last epoch")
+        if name == "ialspp":
+            check(launches[64] > 0 and paths["block"] > 0,
+                  f"msd ialspp: no r = 64 block solve: {launches} {paths}")
+        if name in MSD_KEEP:
+            keep[name] = model
+        del model
+        torch.cuda.empty_cache()
+        out[name] = r
+    return wl, out, keep
+
+
+def phase_eval_msd(wl, models, block_chol):
+    """[eval-msd]: the MSD protocol's 50,000 held-out users
+    (``probes/eval_scale.py::run_msd``) evaluated by the [msd] SAFER2 and
+    iALS++ (whose fold-in runs 8 blockwise sweeps): finite metrics in
+    [0, 1], and the first 2,048 held-out users as a fold of their own
+    equal, row for row, to the whole fold's but for near-tie swaps."""
+    from safer2_recommender_tpu_torch import probes
+    from safer2_recommender_tpu_torch.probes import eval_scale
+
+    block_chol.reset_launches()
+    with probes.recorded_chol_shapes() as shapes:
+        out = eval_scale.run_msd(wl, list(models), trained=models)
+    launches = dict(block_chol.LAUNCHES)
+    check(len(shapes) == sum(launches.values()) > 0,
+          f"eval-msd: launches {launches} for {len(shapes)} calls")
+    for name, r in out.items():
+        sf = r["subfold"]
+        check(r["in_range"], f"eval-msd {name}: metrics not finite in [0, 1]")
+        check(sf["differ"] == sf["excused"],
+              f"eval-msd {name}: {sf['differ'] - sf['excused']} of "
+              f"{sf['rows']} sub-fold rows differ from the whole fold by "
+              f"more than a near-tie swap")
+    check(out["ialspp"]["fold_in_launches"][64] > 0,
+          f"eval-msd ialspp: no r = 64 fold-in solve: "
+          f"{out['ialspp']['fold_in_launches']}")
+    return dict(models=out, launches=launches, shapes=shapes)
+
+
+def phase_serve_msd(wl, model, block_chol):
+    """[serve-msd]: ``probes/serving_scale.py::serve`` with the [msd]
+    SAFER2 on MSD_SERVE_USERS new users against the 41,140-item catalog:
+    recommend() exact and approx, and a Server, k = 100."""
+    from safer2_recommender_tpu_torch import probes
+    from safer2_recommender_tpu_torch.probes import serving_scale
+
+    batch = serving_scale.new_users(MSD_SERVE_USERS, wl.dd.num_items)
+    block_chol.reset_launches()
+    with probes.recorded_chol_shapes() as shapes:
+        r = serving_scale.serve(model, batch)
+    launches = dict(block_chol.LAUNCHES)
+    say("serve-msd", serving_scale.describe(model.name, r))
+    check(serving_scale.ok(r), f"serve-msd: {r}")
+    check(sum(launches.values()) > 0, "serve-msd: no chol_inverse launch")
+    release_graphs()
+    return dict(r, launches=launches, shapes=shapes)
+
+
 def main() -> int:
     import torch
 
@@ -1914,12 +1972,12 @@ def main() -> int:
 
 
 def run_phases(device, ckpt_root: str) -> None:
-    """Phases 2-18; the kernel JSON line at the end. The CLI runs of
+    """Phases 2-23; the kernel JSON line at the end. The CLI runs of
     phases 6, 11, 12 and 13 save their checkpoints under
     ``ckpt_root``."""
     import torch
 
-    from safer2_recommender_tpu_torch import cli
+    from safer2_recommender_tpu_torch import cli, probes
     from safer2_recommender_tpu_torch.ops import bdot, block_chol, woodbury
     from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
     from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
@@ -1942,7 +2000,7 @@ def run_phases(device, ckpt_root: str) -> None:
     phase_solve(block_chol, chol_probe, device)
 
     block_chol.reset_launches()
-    with recorded_chol_shapes(block_chol) as shapes:
+    with probes.recorded_chol_shapes() as shapes:
         res = train(cli, 32, 10, ckpt=os.path.join(ckpt_root, "safer2"))
     dim32_launches = block_chol.total_launches()
     check(len(shapes) == dim32_launches, "dim 32: launches do not match calls")
@@ -2046,7 +2104,19 @@ def run_phases(device, ckpt_root: str) -> None:
                 ranks=phase_mesh_ranks(block_chol, device, workload),
                 refused=phase_mesh_refused())
     del workload
-    torch.cuda.empty_cache()
+    release_graphs()
+
+    t0 = time.perf_counter()
+    msd_wl, msd, msd_models = phase_msd(device, wave)
+    say("msd", f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eval_msd = phase_eval_msd(msd_wl, msd_models, block_chol)
+    say("eval-msd", f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_msd = phase_serve_msd(msd_wl, msd_models["safer2"], block_chol)
+    say("serve-msd", f"phase {time.perf_counter() - t0:.1f} s")
+    del msd_wl, msd_models
+    release_graphs()
 
     bdot.reset_launches()
     probe = bdot_probe.run(device=device)
@@ -2058,24 +2128,30 @@ def run_phases(device, ckpt_root: str) -> None:
     shapes_inter = inter["safer2pp_interleaved"].pop("shapes")
     shapes_inter_ialspp = inter["ialspp_interleaved"].pop("shapes")
     shapes_inter50k = inter50k.pop("shapes")
-    hist = {"ml1m_dim512": launch_histogram(shapes512, wave),
-            "synth50k_dim512": launch_histogram(shapes50k, wave),
-            "ml1m_interleaved_safer2pp_dim512": launch_histogram(
+    hist = {"ml1m_dim512": probes.launch_histogram(shapes512, wave),
+            "synth50k_dim512": probes.launch_histogram(shapes50k, wave),
+            "ml1m_interleaved_safer2pp_dim512": probes.launch_histogram(
                 shapes_inter, wave),
-            "ml1m_interleaved_ialspp_dim32": launch_histogram(
+            "ml1m_interleaved_ialspp_dim32": probes.launch_histogram(
                 shapes_inter_ialspp, wave),
             "synth50k_interleaved_safer2pp": inter50k.pop(
                 "launch_histogram")}
     for name, m in synth_models.items():
         del m["shapes"]
         hist[f"synth50k_{name}"] = m.pop("launch_histogram")
+    shapes_msd = [sh for m in msd.values() for sh in m.pop("shapes")]
+    for name, m in msd.items():
+        hist[f"msd_{name}"] = m.pop("launch_histogram")
+    shapes_eval_msd = eval_msd.pop("shapes")
+    hist["eval_msd"] = probes.launch_histogram(shapes_eval_msd, wave)
     say("kernel", f"one wave (SMs x systems resident on one) by r: {wave}; "
         f"launches by r and N, ML-1M dim 512 (5 epochs + eval; the serve "
         f"batch excluded), synth50k (SAFER2, 2 epochs), each model of "
         f"synth50k-models (initialize + 3 epochs + a fold-in for the ++ "
         f"models), the interleaved ML-1M runs ({INTERLEAVED_EPOCHS} and 10 "
-        f"epochs + eval) and interleaved50k (initialize + 3 epochs): "
-        f"{json.dumps(hist)}")
+        f"epochs + eval), interleaved50k (initialize + 3 epochs), each "
+        f"model of msd (initialize + warm-up + timed epochs) and eval-msd "
+        f"(both models): {json.dumps(hist)}")
     size = lambda sh: sh[0] * sh[1] * sh[2]
     served = {"server_ml1m": [sh for r in server.values()
                               for sh in r.pop("shapes")]}
@@ -2088,6 +2164,7 @@ def run_phases(device, ckpt_root: str) -> None:
         served[f"mesh_rank_synth50k_{name}"] = mesh["ranks"][name].pop(
             "shapes")
     served["mesh_server"] = mesh["ranks"]["server"].pop("shapes")
+    served["serve_msd"] = serve_msd.pop("shapes")
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
         "most_frequent_ml1m_dim512": most_frequent(shapes512),
@@ -2103,7 +2180,11 @@ def run_phases(device, ckpt_root: str) -> None:
             shapes_inter_ialspp),
         "largest_synth50k_interleaved": max(shapes_inter50k, key=size),
         "most_frequent_synth50k_interleaved": most_frequent(
-            shapes_inter50k)}
+            shapes_inter50k),
+        "largest_msd": max(shapes_msd, key=size),
+        "most_frequent_msd": most_frequent(shapes_msd),
+        "largest_eval_msd": max(shapes_eval_msd, key=size),
+        "most_frequent_eval_msd": most_frequent(shapes_eval_msd)}
     for key, sh in served.items():
         main_shapes[f"largest_{key}"] = max(sh, key=size)
         main_shapes[f"most_frequent_{key}"] = most_frequent(sh)
@@ -2153,7 +2234,10 @@ def run_phases(device, ckpt_root: str) -> None:
                      + bf16_profile["launches"]
                      + sum(mesh["cli"]["launches"].values())
                      + sum(sum(by_r.values()) for name in MESH_MODELS
-                           for by_r in mesh["ranks"][name]["launches_by_r"])),
+                           for by_r in mesh["ranks"][name]["launches_by_r"])
+                     + sum(sum(m["launches"].values()) for m in msd.values())
+                     + sum(eval_msd["launches"].values())
+                     + sum(serve_msd["launches"].values())),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
                            + [v["max_abs_err"] for v in main_t.values()]
                            + [served_err]),
@@ -2211,7 +2295,10 @@ def run_phases(device, ckpt_root: str) -> None:
                 "cli_distributed_world1": mesh["cli"]["launches"],
                 "ranks_synth50k": {
                     name: mesh["ranks"][name]["launches_by_r"]
-                    for name in MESH_MODELS}}},
+                    for name in MESH_MODELS}},
+            "msd": {n: m["launches"] for n, m in msd.items()},
+            "eval_msd": eval_msd["launches"],
+            "serve_msd": serve_msd["launches"]},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
@@ -2229,6 +2316,9 @@ def run_phases(device, ckpt_root: str) -> None:
                      gram=bf16_gram, server_ml1m_dim512=bf16_server,
                      profile_dir=bf16_profile),
         "mesh": mesh,
+        "msd": msd,
+        "eval_msd": eval_msd,
+        "serve_msd": serve_msd,
     }, {
         "name": "bdot",
         "route": "cuda",

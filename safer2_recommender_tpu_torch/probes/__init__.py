@@ -4,13 +4,16 @@ package's ``scripts/probe_*.py``)."""
 
 from __future__ import annotations
 
+import contextlib
 import re
 import subprocess
+import time
 from typing import Callable, Dict, List
 
 import torch
 
 from safer2_recommender_tpu_torch import native
+from safer2_recommender_tpu_torch.ops import block_chol
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): device memory
 # rate, the f32 rate outside the tensor cores, and the dense TF32 rate of
@@ -102,3 +105,64 @@ def ptxas_report(src: str, kernel: str) -> List[str]:
         elif name and ("Used" in line or "spill" in line):
             lines[name].append(line.split("info    :")[-1].strip())
     return [f"{k}: {'; '.join(v)}" for k, v in lines.items()]
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed(fn: Callable, device):
+    """``(fn(), ms)``: one call of ``fn`` on a host clock between two
+    ``sync``s of ``device``."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def recorded_chol_shapes():
+    """Record the [N, r, r] shapes the code run while open hands the
+    inverse-Cholesky wrapper (``block_chol.chol_inverse_small``, looked
+    up by ``spd_solve`` at each call). The shim counts nothing; the
+    wrapper's ``LAUNCHES`` does."""
+    shapes, wrapper = [], block_chol.chol_inverse_small
+
+    def recording(a, ridge):
+        shapes.append(tuple(a.shape))
+        return wrapper(a, ridge)
+
+    block_chol.chol_inverse_small = recording
+    try:
+        yield shapes
+    finally:
+        block_chol.chol_inverse_small = wrapper
+
+
+def one_wave(device) -> Dict[int, int]:
+    """Systems of each size r the card holds at once (SMs x systems
+    resident on one), by r; the kernel is built to ask its occupancy."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {r: sms * block_chol.resident_systems(r)
+            for r in block_chol.KERNEL_SIZES}
+
+
+def launch_histogram(shapes, wave) -> Dict[int, dict]:
+    """{r: {"launches", "below_one_wave", "one_wave", "n_bins":
+    {"[lo, hi)": count}}} of recorded [N, r, r] shapes; ``wave[r]`` is
+    ``one_wave``'s."""
+    hist: Dict[int, dict] = {}
+    for n, r, _ in shapes:
+        h = hist.setdefault(r, {"launches": 0, "below_one_wave": 0,
+                                "one_wave": wave[r], "n_bins": {}})
+        h["launches"] += 1
+        h["below_one_wave"] += n < wave[r]
+        lo = 1 << max(n, 1).bit_length() - 1
+        key = f"[{lo}, {2 * lo})"
+        h["n_bins"][key] = h["n_bins"].get(key, 0) + 1
+    return {r: hist[r] for r in sorted(hist)}

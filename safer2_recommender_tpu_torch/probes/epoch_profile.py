@@ -6,8 +6,10 @@ For each (workload, model) pair of ``RUNS``: SAFER2 on ML-1M (the
 bundled ``tests/ml-1m`` split at the README config) and on the 50k x 40k
 power-law set at the MSD config of ``bench.py`` (``synth50k``), then
 SAFER2++ (block 64) on the latter, in frozen order and in the
-reference's order (``safer2pp-interleaved``: ``block_interleaved``);
-all at dim 512, seeded:
+reference's order (``safer2pp-interleaved``: ``block_interleaved``),
+and CVaR-MF on it; last SAFER2 on the full synthetic MSD workload
+(``synth571k``: ``probes/scale.py``, 571,355 x 41,140, ~20.3M tuples,
+the MSD config); all at dim 512, seeded:
 
 1. two warm-up epochs;
 2. for SAFER2, the phases of one epoch, each timed from a synchronize to
@@ -46,7 +48,8 @@ from safer2_recommender_tpu_torch.ops import smoothing, woodbury
 DIM = 512
 # (workload, model) pairs profiled, in order; no flags: edit this list
 RUNS = (("ml1m", "safer2"), ("synth50k", "safer2"),
-        ("synth50k", "safer2pp"), ("synth50k", "safer2pp-interleaved"))
+        ("synth50k", "safer2pp"), ("synth50k", "safer2pp-interleaved"),
+        ("synth50k", "cvar_mf"), ("synth571k", "safer2"))
 ML1M_TRAIN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "tests", "ml-1m", "train.csv")
@@ -68,13 +71,18 @@ def msd_config() -> Config:
 
 
 def workload(name: str, device) -> Tuple[Dataset, DeviceData, Config]:
-    """``"ml1m"`` or ``"synth50k"``: the training set, its device data
-    and the config, at dim 512."""
+    """``"ml1m"``, ``"synth50k"`` or ``"synth571k"``: the training set,
+    its device data and the config, at dim 512."""
     if name == "ml1m":
         ds, cfg = Dataset.from_csv(ML1M_TRAIN), ml1m_config()
     elif name == "synth50k":
         ds = Dataset(*powerlaw_dataset(50_000, 40_000, seed=0))
         cfg = msd_config()
+    elif name == "synth571k":
+        from safer2_recommender_tpu_torch.probes import scale
+
+        wl = scale.build(scale.MSD_USERS, scale.MSD_ITEMS, DIM, device)
+        return wl.ds, wl.dd, wl.cfg
     else:
         raise ValueError(f"unknown workload {name!r}")
     return ds, DeviceData.build(ds, device=device, dim=cfg.dim), cfg

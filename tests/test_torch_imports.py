@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     for mod in ("ops.woodbury", "ops.bdot", "data.synth", "probes.bdot",
                 "probes.epoch_profile", "models.ials", "models.ialspp",
                 "models.erm_mf", "models.cvar_mf", "models.safer2pp",
-                "serving", "checkpoint", "parallel.mesh", "parallel.audit"):
+                "serving", "checkpoint", "parallel.mesh", "parallel.audit",
+                "probes.scale", "probes.eval_scale", "probes.serving_scale"):
         assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
 
 

@@ -164,7 +164,7 @@ def test_chol_inverse_probe_refuses_the_cpu():
 
 def test_launch_histogram_counts_launches_below_one_wave():
     shapes = [(928, 64, 64), (21, 8, 8), (21, 8, 8), (6000, 32, 32)]
-    hist = chip_smoke.launch_histogram(shapes, {8: 100, 32: 5280, 64: 1056})
+    hist = probes.launch_histogram(shapes, {8: 100, 32: 5280, 64: 1056})
     assert hist[8] == {"launches": 2, "below_one_wave": 2, "one_wave": 100,
                        "n_bins": {"[16, 32)": 2}}
     assert hist[32]["below_one_wave"] == 0

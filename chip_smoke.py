@@ -148,23 +148,37 @@ Phases, each printing lines to stdout tagged with its name:
      MESH_NDCG_TOL of phase 9's, the dual gate every epoch, the same
      chol_inverse launch shapes, shape for shape. (b) SAFER2 and SAFER2++
      (frozen, block 64) on the 50k workload: one epoch in this process
-     from a fresh initialization, then MESH_RANKS spawned ranks on this
-     one card over gloo with CUDA tensors (NCCL refuses two ranks on one
-     GPU), each model one epoch from the same initial tables: tables
-     within rtol 5e-3, atol 5e-5 x dim/8 of the one-process epoch, mean
-     dual weight within 1e-4, the ranks' tables bitwise equal (a
-     checksum all-gathered), chol_inverse launches per rank equal in
-     count and r to the one-process epoch's at about half the systems
-     and equal shape for shape across ranks,
-     collective calls and bytes per epoch (parallel/audit.py) against the
-     U+V table bytes, each rank's epoch ms beside the one-process one.
-     (c) a Server(k=10) on the meshed SAFER2 over the 256 longest
-     histories and 1,024 random users: ids equal its recommend()'s but
-     for near-tie swaps, equal across ranks; the kernel's shapes
-     recorded. (d) --mesh (device count +
-     1) exits non-zero with the JAX CLI's "exceeds" message. No check
-     here times more than one card.
- 21. msd (after phase 20): the full synthetic MSD workload
+     from a fresh initialization, then for each world size of MESH_RANKS
+     (2 and 8) that many spawned ranks on this one card over gloo with
+     CUDA tensors (NCCL refuses two ranks on one GPU), each model one
+     epoch from the same initial tables: tables within rtol 5e-3, atol
+     5e-5 x dim/8 of the one-process epoch, mean dual weight within
+     1e-4, the ranks' tables bitwise equal (a checksum all-gathered),
+     chol_inverse launches per rank equal in count and r to the
+     one-process epoch's at about 1/n of the systems and equal shape
+     for shape across ranks, one all-gather per sweep and one for the
+     losses, their bytes within the JAX package's budget of the U+V
+     table bytes, each rank's epoch ms beside the one-process one, the
+     buckets that leave some rank only padding counted. (c) a
+     Server(k=10) on the meshed SAFER2 over the 256 longest histories
+     and 1,024 random users: ids equal its recommend()'s but for
+     near-tie swaps, equal across ranks; the kernel's shapes recorded.
+     (d) --mesh (device count + 1) exits non-zero with the JAX CLI's
+     "exceeds" message. No check here times more than one card: ranks
+     that share it check function, never scaling.
+ 24. dryrun8 (after phase 20): dryrun.dryrun_multichip(8, "cuda"), the
+     JAX package's dryrun_multichip(8): all six models and interleaved
+     SAFER2++ on 8 ranks sharing this card, a finite loss and the SAFER
+     models' mean dual weight within alpha +/- 0.02 on every rank, every
+     rank in a world of 8, the ranks' readings equal.
+ 25. multichip: probes/multichip.py's collective audit at 8 ranks
+     (SAFER2, SAFER2++, iALS at 8,000 x 2,000, dim 64: the same traffic
+     on every rank, one all-gather per sweep and one for the losses,
+     bytes within the JAX budgets; fold-in and scoring traffic beside
+     their bases), then its ML-1M SAFER2 dim-32 epoch at 1, 2, 4 and 8
+     ranks (finite tables, bitwise equal across ranks, the dual gate;
+     each rank's epoch ms, labelled as ranks sharing one card).
+ 21. msd (after phase 25): the full synthetic MSD workload
      (probes/scale.py: 571,355 users x 41,140 items, ~20.3M tuples, seed
      0) at dim 512 and the MSD config through the library API: SAFER2
      (one warm-up and 2 timed epochs), iALS and iALS++ (block 64; one
@@ -1476,7 +1490,7 @@ def phase_server50k(models, ds, block_chol, device):
     return out
 
 
-MESH_RANKS = 2
+MESH_RANKS = (2, 8)     # world sizes of [mesh] (b), (c), on the one card
 MESH_SYNTH = (50_000, 40_000)     # the synth50k workload's users, items
 MESH_MODELS = ("safer2", "safer2pp")   # the ++ model frozen, block 64
 # a 2-rank epoch against the one-process epoch: the JAX package's
@@ -1605,8 +1619,10 @@ def mesh_rank(mesh, root: str, tmp: str, synth, cfg) -> dict:
     t0 = time.perf_counter()
     ds = Dataset(*powerlaw_dataset(*synth, seed=0))
     dd = DeviceData.build(ds, device=dev, dim=cfg.dim, mesh=mesh)
-    out = dict(setup_s=time.perf_counter() - t0, rows_by_bucket=[
-        b.n_rows for b in dd.by_user + dd.by_item])
+    buckets = dd.by_user + dd.by_item
+    out = dict(setup_s=time.perf_counter() - t0,
+               rows_by_bucket=[b.n_rows for b in buckets],
+               live_by_bucket=[int((b.length > 0).sum()) for b in buckets])
     atol = MESH_ATOL * max(1, cfg.dim / 8)
     for name in MESH_MODELS:
         model = get_model(name, cfg, ds.num_users, ds.num_items,
@@ -1693,19 +1709,20 @@ def mesh_serve(model, ds, dev, block_chol) -> dict:
 
 def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
     """[mesh] (b) and (c): the one-process epochs of MESH_MODELS on the
-    50k workload here, then MESH_RANKS ranks on this one card over gloo
-    (NCCL refuses two ranks on one GPU), each model one epoch from the
-    same initial tables, and a Server on the meshed SAFER2. ``workload``
-    is ``(powerlaw_dataset(*synth, seed=0) as a Dataset, its DeviceData,
-    Config)``."""
+    50k workload here, then for each world size of MESH_RANKS that many
+    ranks on this one card over gloo (NCCL refuses two ranks on one
+    GPU), each model one epoch from the same initial tables, and a Server
+    on the meshed SAFER2. ``workload`` is ``(powerlaw_dataset(*synth,
+    seed=0) as a Dataset, its DeviceData, Config)``. Returns the readings
+    by world size."""
     import numpy as np
     import torch
 
     from safer2_recommender_tpu_torch import get_model, parallel, probes
-    from safer2_recommender_tpu_torch.parallel import audit
 
     ds, dd, cfg = workload
     single = {}
+    out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         for name in MESH_MODELS:
             model = get_model(name, cfg, ds.num_users, ds.num_items,
@@ -1727,41 +1744,104 @@ def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
                                 launches=dict(block_chol.LAUNCHES))
             del model
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = parallel.spawn(mesh_rank, MESH_RANKS, device=device,
-                               backend="gloo", args=(ROOT, tmp, synth, cfg),
-                               timeout_s=600)
-        spawn_s = time.perf_counter() - t0
+        for n in MESH_RANKS:
+            layout = layout_shapes(n, ds, cfg, tmp, device)
+            t0 = time.perf_counter()
+            ranks = parallel.spawn(mesh_rank, n, device=device,
+                                   backend="gloo",
+                                   args=(ROOT, tmp, synth, cfg),
+                                   timeout_s=600)
+            out[n] = check_mesh_ranks(n, ranks, single, layout, ds, cfg,
+                                      synth, time.perf_counter() - t0)
+    return out
+
+
+def layout_shapes(n, ds, cfg, tmp, device) -> dict:
+    """The kernel's shapes of one epoch of each model of MESH_MODELS in
+    this process on the bucket layout of ``n`` ranks (rows padded to a
+    multiple of 8 x n, as each rank pads them), from the initial tables
+    in ``tmp``: each rank must launch these at 1/n of the systems. The
+    padding can make a bucket wide or split a solve batch where the
+    default layout's does not, in the JAX package too, which decides from
+    the same global shape."""
+    import numpy as np
+    import torch
+
+    from safer2_recommender_tpu_torch import (DeviceData, get_model, interop,
+                                              probes)
+
+    dd = DeviceData.build(ds, device=device, dim=cfg.dim, row_multiple=8 * n)
+    out = {}
+    for name in MESH_MODELS:
+        model = get_model(name, cfg, ds.num_users, ds.num_items,
+                          device=device)
+        with np.load(os.path.join(tmp, f"{name}_init.npz")) as f:
+            interop.state_from_jax(dict(f), model, dd, steps=0)
+        with probes.recorded_chol_shapes() as shapes:
+            model.train_epoch(dd)
+        out[name] = shapes
+        del model
+    del dd
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_ranks(n, ranks, single, layout, ds, cfg, synth,
+                     spawn_s) -> dict:
+    """[mesh] (b) and (c) of ``n`` ranks against the one-process epochs
+    ``single`` and the one-process launches on their layout ``layout``:
+    the checks and the lines."""
+    import numpy as np
+
+    from safer2_recommender_tpu_torch.parallel import audit
+    from safer2_recommender_tpu_torch.probes import multichip
+
+    where = f"{n} ranks sharing one card (gloo, CUDA tensors)"
     table_bytes = (ds.num_users + ds.num_items) * cfg.dim * 4
-    out = dict(spawn_s=spawn_s, table_bytes=table_bytes)
+    rows = [r["rows_by_bucket"] for r in ranks]
+    check(all(x == rows[0] for x in rows),
+          f"mesh (b) {n} ranks: the ranks' buckets differ in rows")
+    live = np.array([r["live_by_bucket"] for r in ranks])
+    padding_only = int((live == 0).any(axis=0).sum())
+    out = dict(spawn_s=spawn_s, table_bytes=table_bytes,
+               buckets=len(rows[0]), padding_only_buckets=padding_only)
     for name in MESH_MODELS:
         one = single[name]
         rs = [r[name] for r in ranks]
         for i, r in enumerate(rs):
             bad = {k: v for k, v in r["err"].items() if v["max_excess"] > 0}
-            check(not bad, f"mesh (b) {name} rank {i}: tables off the "
-                  f"one-process epoch beyond rtol {MESH_RTOL:g}, atol "
+            check(not bad, f"mesh (b) {n} ranks {name} rank {i}: tables off "
+                  f"the one-process epoch beyond rtol {MESH_RTOL:g}, atol "
                   f"{MESH_ATOL:g} x dim/8: {bad}")
             check(abs(r["mean_dual"] - one["mean_dual"]) <= MESH_DUAL_TOL,
-                  f"mesh (b) {name} rank {i}: mean dual weight "
+                  f"mesh (b) {n} ranks {name} rank {i}: mean dual weight "
                   f"{r['mean_dual']} vs {one['mean_dual']}")
-            check(r["ranks_equal"], f"mesh (b) {name}: rank tables differ")
-            check(len(r["shapes"]) == len(one["shapes"]) and [
-                sh[1:] for sh in r["shapes"]] == [
-                sh[1:] for sh in one["shapes"]],
-                f"mesh (b) {name} rank {i}: {len(r['shapes'])} launches "
-                f"vs {len(one['shapes'])} in one process")
+            check(r["ranks_equal"], f"mesh (b) {n} ranks {name}: rank "
+                  f"tables differ")
+            check(all(m % n == 0 for m, _, _ in layout[name])
+                  and r["shapes"] == [(m // n, a, b)
+                                      for m, a, b in layout[name]],
+                  f"mesh (b) {n} ranks {name} rank {i}: {len(r['shapes'])} "
+                  f"launches, not 1/{n} of each of the "
+                  f"{len(layout[name])} one process makes on the {n}-rank "
+                  f"layout")
             check(r["launches"] and sum(r["launches"].values()) > 0,
-                  f"mesh (b) {name} rank {i}: no chol_inverse launch")
+                  f"mesh (b) {n} ranks {name} rank {i}: no chol_inverse "
+                  f"launch")
             check(r["shapes"] == rs[0]["shapes"],
-                  f"mesh (b) {name} rank {i}: other launch shapes than "
-                  f"rank 0's")
+                  f"mesh (b) {n} ranks {name} rank {i}: other launch shapes "
+                  f"than rank 0's")
+            check(r["repeat_equal"], f"mesh (b) {n} ranks {name} rank {i}: "
+                  f"a repeat of the epoch from the same start differs")
         n_one = sum(sh[0] for sh in one["shapes"])
         n_rank = [sum(sh[0] for sh in r["shapes"]) for r in rs]
         traffic = rs[0]["traffic"]
-        for i, r in enumerate(rs):
-            check(r["repeat_equal"], f"mesh (b) {name} rank {i}: a repeat "
-                  f"of the epoch from the same start differs")
+        ratio = audit.total_bytes(traffic) / table_bytes
+        check(list(traffic) == ["all-gather"]
+              and traffic["all-gather"][0] == 3
+              and ratio <= multichip.EPOCH_BUDGETS[name],
+              f"mesh (b) {n} ranks {name}: collectives per epoch {traffic}, "
+              f"{ratio:.3f} x the U+V tables")
         out[name] = dict(
             single_epoch_ms=one["epoch_ms"],
             rank_epoch_ms=[r["epoch_ms"] for r in rs],
@@ -1770,8 +1850,9 @@ def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
             rank_gather_ms=[r["gather_ms"] for r in rs],
             traffic=traffic, collective_calls=audit.total_calls(traffic),
             collective_bytes=audit.total_bytes(traffic),
-            bytes_over_tables=audit.total_bytes(traffic) / table_bytes,
+            bytes_over_tables=ratio,
             launches_single=len(one["shapes"]),
+            launches_single_on_layout=len(layout[name]),
             launches_per_rank=[len(r["shapes"]) for r in rs],
             systems_single=n_one, systems_per_rank=n_rank,
             launches_by_r=[r["launches"] for r in rs],
@@ -1780,8 +1861,7 @@ def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
             mean_dual=[one["mean_dual"]] + [r["mean_dual"] for r in rs],
             shapes=rs[0]["shapes"])
         say("mesh", f"(b) {name}, {synth[0]} x {synth[1]} power-law set, "
-            f"dim {cfg.dim}, block {cfg.block_size}, "
-            f"{MESH_RANKS} ranks on one card (gloo, CUDA tensors), one "
+            f"dim {cfg.dim}, block {cfg.block_size}, {where}, one "
             f"epoch from the one-process run's tables: epoch ms one process "
             f"{one['epoch_ms']:.1f}, by rank first "
             f"{[round(r['epoch_ms'], 1) for r in rs]}, warm repeat "
@@ -1791,33 +1871,37 @@ def phase_mesh_ranks(block_chol, device, workload, synth=MESH_SYNTH):
             f"{[[round(t, 1) for t in r['gather_ms']] for r in rs]}; "
             f"collectives per "
             f"epoch {traffic} = {audit.total_bytes(traffic)} B, "
-            f"{audit.total_bytes(traffic) / table_bytes:.3f} x the U+V "
-            f"tables ({table_bytes} B); chol_inverse launches one process "
-            f"{len(one['shapes'])} ({n_one} systems), per rank "
-            f"{[len(r['shapes']) for r in rs]} ({n_rank} systems); max abs "
-            f"err vs one process {out[name]['max_abs_err']}; mean dual "
-            f"{out[name]['mean_dual']}; ranks bitwise equal")
+            f"{ratio:.3f} x the U+V tables ({table_bytes} B); chol_inverse "
+            f"launches one process {len(one['shapes'])} ({n_one} systems), "
+            f"one process on the {n}-rank layout {len(layout[name])} "
+            f"({sum(sh[0] for sh in layout[name])} systems), per rank "
+            f"{[len(r['shapes']) for r in rs]} ({n_rank} systems), each "
+            f"1/{n} of the layout's, shape for shape; "
+            f"max abs err vs one process {out[name]['max_abs_err']}; mean "
+            f"dual {out[name]['mean_dual']}; ranks bitwise equal")
     served = [r["server"] for r in ranks]
     for i, srv in enumerate(served[1:], 1):
         check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                   for a, b in zip(srv["ids"], served[0]["ids"])),
-              f"mesh (c): rank {i} served other users or ids than rank 0")
+              f"mesh (c) {n} ranks: rank {i} served other users or ids than "
+              f"rank 0")
     out["server"] = dict(
         near_tie_rows=[s["near_tie_rows"] for s in served],
         graphs=served[0]["graphs"], batch_sizes=served[0]["batch_sizes"],
         ms_by_rank=[s["ms"] for s in served],
         users=[int(b[0].size) for b in served[0]["ids"]],
         shapes=sorted({sh for s in served for sh in s["shapes"]}))
-    say("mesh", f"(c) Server(k=10) on the 2-rank SAFER2 model, rungs "
-        f"{served[0]['batch_sizes']} (multiples of 8 x {MESH_RANKS}), "
+    say("mesh", f"(c) Server(k=10) on the {n}-rank SAFER2 model ({where}), "
+        f"rungs {served[0]['batch_sizes']} (multiples of 8 x {n}), "
         f"{served[0]['graphs']} graphs per rank, batches of "
         f"{out['server']['users']} users: ids equal recommend()'s on the "
         f"mesh but for near-tie rows {out['server']['near_tie_rows']}, "
         f"equal across ranks; ms per batch by rank "
         f"{[[round(t, 1) for t in s['ms']] for s in served]}")
-    say("mesh", f"{MESH_RANKS} ranks spawned, run and joined in "
-        f"{spawn_s:.1f} s (data, bucketing and CUDA start-up in each rank; "
-        f"setup {[round(r['setup_s'], 1) for r in ranks]} s)")
+    say("mesh", f"{where}: spawned, run and joined in {spawn_s:.1f} s "
+        f"(data, bucketing and CUDA start-up in each rank; setup "
+        f"{[round(r['setup_s'], 1) for r in ranks]} s); {padding_only} of "
+        f"{len(rows[0])} buckets leave some rank a block of padding only")
     return out
 
 
@@ -1841,6 +1925,65 @@ def phase_mesh_refused():
     say("mesh", f"(d) {' '.join(argv[2:3] + argv[-2:])}: exit "
         f"{res.returncode}, {want!r}")
     return dict(rc=res.returncode, message=want)
+
+
+DRYRUN_RANKS = 8
+
+
+def phase_dryrun8():
+    """[dryrun8]: ``dryrun.dryrun_multichip(8, "cuda")``, the counterpart
+    of the JAX package's ``dryrun_multichip(8)``: all six models and
+    interleaved SAFER2++ on 8 ranks (sharing this card over gloo), a
+    finite loss and the SAFER models' mean dual weight within alpha +/-
+    0.02 on each rank, every rank in a world of 8."""
+    from safer2_recommender_tpu_torch import dryrun
+
+    ranks = dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda")
+    check(len(ranks) == DRYRUN_RANKS
+          and all(r["world_size"] == DRYRUN_RANKS for r in ranks),
+          f"dryrun8: {len(ranks)} ranks")
+    check(all(r["runs"] == ranks[0]["runs"] for r in ranks),
+          "dryrun8: the ranks' losses or duals differ")
+    say("dryrun8", dryrun.describe(ranks))
+    return dict(devices=sorted({r["device"] for r in ranks}),
+                runs=ranks[0]["runs"])
+
+
+def phase_multichip():
+    """[multichip]: ``probes/multichip.py``: the collective audit at 8
+    ranks (SAFER2, SAFER2++, iALS; every rank the same traffic, one
+    all-gather per sweep and one for the losses, bytes within the JAX
+    package's budgets) and the ML-1M SAFER2 epoch at 1, 2, 4 and 8 ranks
+    (finite tables, bitwise equal across ranks, the dual gate). Every
+    world above one shares this card: its times check function only."""
+    from safer2_recommender_tpu_torch.probes import multichip
+
+    dev = "cuda"
+    aud = multichip.audit(dev)
+    for line in multichip.describe_audit(aud, dev).splitlines():
+        say("multichip", line)
+    faults = multichip.audit_faults(aud)
+    check(not faults, "multichip audit: " + "; ".join(faults))
+    sweep = multichip.sweep(dev)
+    for r in sweep:
+        say("multichip", multichip.describe_timed(
+            f"ML-1M SAFER2 dim {multichip.SWEEP_DIM}", r, dev))
+        ranks = r["by_rank"]
+        check(all(x["world_size"] == r["ranks"] and x["finite"]
+                  for x in ranks)
+              and len({x["digest"] for x in ranks}) == 1,
+              f"multichip sweep {r['ranks']} ranks: world sizes, nonfinite "
+              f"or unequal tables")
+        check(abs(ranks[0]["mean_dual"] - ALPHA) <= DUAL_TOL,
+              f"multichip sweep {r['ranks']} ranks: mean dual weight "
+              f"{ranks[0]['mean_dual']}")
+    for r in sweep:
+        for x in r["by_rank"]:
+            del x["digest"]
+    return dict(audit={k: aud[k] for k in ("models", "table_bytes",
+                                           "ue_bytes", "input_bytes", "nnz",
+                                           "shared")},
+                sweep=sweep)
 
 
 MSD_DIM = 512
@@ -1972,7 +2115,7 @@ def main() -> int:
 
 
 def run_phases(device, ckpt_root: str) -> None:
-    """Phases 2-23; the kernel JSON line at the end. The CLI runs of
+    """Phases 2-25; the kernel JSON line at the end. The CLI runs of
     phases 6, 11, 12 and 13 save their checkpoints under
     ``ckpt_root``."""
     import torch
@@ -2105,6 +2248,12 @@ def run_phases(device, ckpt_root: str) -> None:
                 refused=phase_mesh_refused())
     del workload
     release_graphs()
+    t0 = time.perf_counter()
+    dryrun8 = phase_dryrun8()
+    say("dryrun8", f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multichip = phase_multichip()
+    say("multichip", f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     msd_wl, msd, msd_models = phase_msd(device, wave)
@@ -2158,12 +2307,14 @@ def run_phases(device, ckpt_root: str) -> None:
     for name, r in server50k.items():
         served[f"server50k_{name}"] = r.pop("shapes")
     served["server_ml1m_dim512_bf16"] = bf16_server.pop("shapes")
-    # each rank's shapes of [mesh] (b) (about half the one-process N) and
-    # of the meshed Server (c): rank 0's, equal to rank 1's by (b)'s check
-    for name in MESH_MODELS:
-        served[f"mesh_rank_synth50k_{name}"] = mesh["ranks"][name].pop(
-            "shapes")
-    served["mesh_server"] = mesh["ranks"]["server"].pop("shapes")
+    # each rank's shapes of [mesh] (b) (about 1/n of the one-process N)
+    # and of the meshed Server (c): rank 0's, equal to every rank's by
+    # (b)'s check
+    for n in MESH_RANKS:
+        for name in MESH_MODELS:
+            served[f"mesh{n}_rank_synth50k_{name}"] = mesh["ranks"][n][
+                name].pop("shapes")
+        served[f"mesh{n}_server"] = mesh["ranks"][n]["server"].pop("shapes")
     served["serve_msd"] = serve_msd.pop("shapes")
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
@@ -2233,8 +2384,9 @@ def run_phases(device, ckpt_root: str) -> None:
                            for k, r in bf16_synth.items() if k != "profile")
                      + bf16_profile["launches"]
                      + sum(mesh["cli"]["launches"].values())
-                     + sum(sum(by_r.values()) for name in MESH_MODELS
-                           for by_r in mesh["ranks"][name]["launches_by_r"])
+                     + sum(sum(by_r.values()) for n in MESH_RANKS
+                           for name in MESH_MODELS
+                           for by_r in mesh["ranks"][n][name]["launches_by_r"])
                      + sum(sum(m["launches"].values()) for m in msd.values())
                      + sum(eval_msd["launches"].values())
                      + sum(serve_msd["launches"].values())),
@@ -2294,8 +2446,8 @@ def run_phases(device, ckpt_root: str) -> None:
             "mesh": {
                 "cli_distributed_world1": mesh["cli"]["launches"],
                 "ranks_synth50k": {
-                    name: mesh["ranks"][name]["launches_by_r"]
-                    for name in MESH_MODELS}},
+                    n: {name: mesh["ranks"][n][name]["launches_by_r"]
+                        for name in MESH_MODELS} for n in MESH_RANKS}},
             "msd": {n: m["launches"] for n, m in msd.items()},
             "eval_msd": eval_msd["launches"],
             "serve_msd": serve_msd["launches"]},
@@ -2316,6 +2468,8 @@ def run_phases(device, ckpt_root: str) -> None:
                      gram=bf16_gram, server_ml1m_dim512=bf16_server,
                      profile_dir=bf16_profile),
         "mesh": mesh,
+        "dryrun8": dryrun8,
+        "multichip": multichip,
         "msd": msd,
         "eval_msd": eval_msd,
         "serve_msd": serve_msd,

@@ -210,6 +210,28 @@ def init_distributed(device=DEFAULT_DEVICE, backend: Optional[str] = None,
     return get_mesh(dev)
 
 
+def placement(world_size: int, device=DEFAULT_DEVICE
+              ) -> Tuple[str, Optional[str]]:
+    """``(device, backend)`` for ``spawn``ing ``world_size`` ranks on
+    ``device``: as given (the default backend), except a CUDA device
+    without an index when the host has fewer cards than ranks, whose
+    ranks all go on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card). Such ranks share the card: a run of them checks function,
+    never scaling."""
+    dev = resolve_device(device)
+    if (dev.type == "cuda" and dev.index is None
+            and world_size > torch.cuda.device_count()):
+        return "cuda:0", "gloo"
+    return str(dev), None
+
+
+def shares_a_card(world_size: int, device) -> bool:
+    """Whether ``world_size`` ranks spawned on ``device`` (as
+    ``placement`` gives it) all run on one card."""
+    dev = torch.device(device)
+    return dev.type == "cuda" and dev.index is not None and world_size > 1
+
+
 def _rank_main(rank: int, fn: Callable, world_size: int, device: str,
                backend: Optional[str], init_method: str, timeout_s: float,
                args: tuple, results) -> None:

@@ -234,6 +234,51 @@ def test_cli_two_epochs_of_each_new_model_print_the_jax_line_formats(
     assert float(re.search(r"Mean NDCG@20=(\d\.\d{4})", err).group(1)) > 0.0
 
 
+def test_cli_rejects_missing_file(capsys):
+    # tests/test_cli.py::test_cli_rejects_missing_file: the parser checks
+    # that the file (or its .gz twin) exists before anything is read
+    from safer2_recommender_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as exc:
+        cli.run(["--model_name", "ials", "--train_data", "/no/such.csv",
+                 "--device", "cpu"])
+    assert exc.value.code != 0
+    assert "File does not exist: /no/such.csv" in capsys.readouterr().err
+
+
+def test_cli_print_residual_stats_prints_the_jax_line_each_epoch():
+    # the JAX CLI's residual line (safer2_recommender_tpu/models/base.py:
+    # 447), once per epoch, after the epoch's own lines
+    res = _run(["--dim", "8", "--alpha", "0.3", "--bandwidth", "0.15",
+                "--uobs_weight", "0.004", "--l2_reg", "0.004",
+                "--block_size", "4", "--epoch", "2", "--print_train_stats",
+                "0", "--print_residual_stats", "1", "--device", "cpu"],
+               model="safer2pp")
+    assert res.returncode == 0, res.stderr[-3000:]
+    found = re.findall(_PREFIX + rf"U residual: ({_NUM}), V residual: "
+                       rf"({_NUM}), z residual: ({_NUM})$", res.stderr, re.M)
+    assert len(found) == 2, res.stderr[-3000:]
+    for row in found:
+        u, v, z = (float(x) for x in row)
+        # both tables move in an epoch from random tables
+        assert u > 0 and v > 0 and z >= 0
+
+
+def test_pyproject_names_the_ports_console_script():
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    targets = sorted(scripts.values())
+    assert targets == ["safer2_recommender_tpu.cli:main",
+                       "safer2_recommender_tpu_torch.cli:main"]
+    name = next(k for k, v in scripts.items()
+                if v == "safer2_recommender_tpu_torch.cli:main")
+    module, func = scripts[name].split(":")
+    assert callable(getattr(importlib.import_module(module), func))
+
+
 def test_cli_fails_without_cuda_instead_of_using_the_cpu(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -105,7 +105,7 @@ Phases, each printing lines to stdout tagged with its name:
      device memory, rows through the column-chunked route (> 0), the
      launch count of every epoch as in phase 12, launches by r and N
      against one wave;
- 18. probe (run after phase 23): the batched-dot probe
+ 18. probe (run after phase 29): the batched-dot probe
      (probes/bdot.py), the bdot kernel's own path: at [4096, h, h] and
      8 dots, each precision per call and
      from a CUDA graph beside its bound, its plain version and
@@ -119,7 +119,8 @@ Phases, each printing lines to stdout tagged with its name:
      rank's shapes of phase 20's (b) and (c) included), compared and
      timed as in phase 3, and compared at every other shape the served
      and meshed paths gave it; the largest and the most frequent shape
-     of phases 21 and 22 and of the served path of 23 are timed too;
+     of phases 21, 22 and 26 and of the served path of 23 are timed
+     too;
  19. bf16 (run between phases 14 and 16): compute_dtype="bf16" beside
      float32. ML-1M SAFER2 at dim 512, the README config, 10 epochs
      through the CLI with --compute_dtype bf16 (saving a checkpoint),
@@ -201,6 +202,23 @@ Phases, each printing lines to stdout tagged with its name:
      and approx, first call and best of 3, and a Server(k=100), its p50;
      ids in range and outside each user's history, the Server's ids
      equal to recommend()'s but for near-tie swaps.
+ 26. bench (after phase 23): safer2_recommender_tpu_torch/bench.py's
+     main in this process, bench.py's record on the card (the six
+     models' 50k dim-512 epochs, recommend() and Server serving of new
+     users, ML-1M dim 32 epoch and NDCG@20): every key present and
+     every number finite, NDCG@20 >= 0.2, the device named as
+     nvidia-smi names it, no Server program built by the varying
+     batches, chol_inverse launched;
+ 27. entry: dryrun.entry (the JAX package's __graft_entry__.entry, the
+     serving forward step) on the card against its CPU result, every
+     user's Recall and NDCG within ENTRY_TOL;
+ 28. classes: SAFER2 on the 50k workload, two epochs profiled and every
+     device kernel sorted into op classes by the aten op that launched
+     it (probes/epoch_profile.py): the classes sum to the kernels'
+     device time within 0.1%, and the catch-all is split by the port's
+     calling line;
+ 29. roofline: probes/roofline.py's attained rates beside the published
+     peaks.
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -1044,18 +1062,6 @@ def check_served(tag, model, batch, got, want) -> int:
     return int(ties.size)
 
 
-def release_graphs() -> None:
-    """Free the graph pools of Servers no longer referenced: a program's
-    callable refers back to its Server, a cycle only the collector
-    breaks."""
-    import gc
-
-    import torch
-
-    gc.collect()
-    torch.cuda.empty_cache()
-
-
 def p50_ms(fn, device, repeats=P50_REPEATS):
     import numpy as np
 
@@ -1077,7 +1083,7 @@ def graph_matches_eager(srv, batch) -> bool:
 
     from safer2_recommender_tpu_torch.utils.device import f32_matmul
 
-    _, shapes, _, _ = next(srv._pack(batch.user_ids, batch.item_ids))
+    _, shapes, _ = next(srv._pack(batch.user_ids, batch.item_ids))
     srv.recommend(batch)
     prog = srv.programs()[shapes]
     graph_ids = (prog.out if prog.out is not None else prog.fn()).clone()
@@ -1186,7 +1192,7 @@ def serve_model(tag, model, server_model, batches, b64, block_chol, device,
     # (a dim-512 direct fold-in at B = 4096 holds tens of GB); a program
     # refers back to its Server, so only the collector frees them
     del srv
-    release_graphs()
+    probes.release_graphs()
     if approx_overlap:
         asrv = Server(server_model, k=10, approx=True)
         ov = [np.mean([np.intersect1d(x, y).size / 10
@@ -1195,7 +1201,7 @@ def serve_model(tag, model, server_model, batches, b64, block_chol, device,
         out["approx_overlap"] = float(np.mean(ov))
         out["approx_graphs"] = asrv.num_compiles
         del asrv
-        release_graphs()
+        probes.release_graphs()
     return out
 
 
@@ -2073,8 +2079,134 @@ def phase_serve_msd(wl, model, block_chol):
     say("serve-msd", serving_scale.describe(model.name, r))
     check(serving_scale.ok(r), f"serve-msd: {r}")
     check(sum(launches.values()) > 0, "serve-msd: no chol_inverse launch")
-    release_graphs()
+    probes.release_graphs()
     return dict(r, launches=launches, shapes=shapes)
+
+
+# bench.py's keys (less "regressions" and "backend") plus "device"
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "epoch_ms",
+    "safer2pp_dim512_epoch_ms", "ialspp_dim512_epoch_ms",
+    "ials_dim512_epoch_ms", "erm_mf_dim512_epoch_ms",
+    "cvar_mf_dim512_epoch_ms", "serving_users_per_s_chip",
+    "serving_varying_users_per_s_chip", "serving_p50_ms_batch64",
+    "serving_compiled_programs", "ml1m_dim32_users_per_s_chip",
+    "ml1m_safer2_dim32_ndcg20_10ep", "ml1m_dim32_vs_cpp_1core",
+    "ml1m_dim32_epoch_ms", "device", "dim")
+ENTRY_TOL = 1e-6     # the card's entry() metrics vs its CPU result
+
+
+def phase_bench(block_chol):
+    """[bench]: ``bench.main`` in this process, its output captured and
+    printed: every key of the record present, the numbers finite, the six
+    epoch times, NDCG@20 >= NDCG20_MIN, the Server's programs unmoved by
+    the varying batches (the count after the batches of 64 is the
+    record's), chol_inverse launched."""
+    import io
+    import math
+
+    from safer2_recommender_tpu_torch import bench, probes
+
+    buf = io.StringIO()
+    block_chol.reset_launches()
+    with probes.recorded_chol_shapes() as shapes, \
+            contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    launches = dict(block_chol.LAUNCHES)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say("bench", line)
+    check(rc == 0 and lines, f"bench: exit {rc}")
+    record = json.loads(lines[-1])
+    check(sorted(record) == sorted(BENCH_KEYS),
+          f"bench: keys {sorted(record)}, want {sorted(BENCH_KEYS)}")
+    numbers = {k: v for k, v in record.items()
+               if k not in ("metric", "unit", "device")}
+    check(all(isinstance(v, (int, float)) and math.isfinite(v)
+              for v in numbers.values()), f"bench: {numbers}")
+    check(record["device"] == probes.nvidia_smi(),
+          f"bench: device {record['device']!r}")
+    ndcg = record["ml1m_safer2_dim32_ndcg20_10ep"]
+    check(ndcg >= NDCG20_MIN, f"bench: NDCG@20 {ndcg} < {NDCG20_MIN}")
+    m = re.search(r"Server programs: (\d+) after warm-up, (\d+) after the "
+                  r"varying batches, (\d+) after the batches of 64",
+                  lines[-2])
+    check(m is not None, "bench: no Server program counts")
+    programs = dict(zip(("after_warmup", "after_varying", "at_end"),
+                        map(int, m.groups())))
+    check(programs["after_varying"] == programs["after_warmup"]
+          and programs["at_end"] == record["serving_compiled_programs"],
+          f"bench: programs {programs}")
+    check(sum(launches.values()) > 0 and shapes,
+          f"bench: chol_inverse launches {launches}")
+    return dict(record=record, programs=programs, launches=launches,
+                shapes=shapes)
+
+
+def phase_entry(device):
+    """[entry]: ``dryrun.entry`` on the card against its own CPU result:
+    every user's Recall and NDCG at each k within ENTRY_TOL."""
+    from safer2_recommender_tpu_torch import dryrun
+
+    fwd, args = dryrun.entry(device)
+    got = [t.cpu() for t in fwd(*args)]
+    cfwd, cargs = dryrun.entry("cpu")
+    want = cfwd(*cargs)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err <= ENTRY_TOL, f"entry: card vs CPU metrics differ by {err}")
+    say("entry", f"dryrun.entry (256 users x 2,048 items, dim 64; k = "
+        f"{list(dryrun.ENTRY_K)}): mean Recall {got[0].mean(0).tolist()}, "
+        f"mean NDCG {got[1].mean(0).tolist()}; max |card - CPU| per user "
+        f"{err:.3e} (tol {ENTRY_TOL:g})")
+    return dict(recall=got[0].mean(0).tolist(), ndcg=got[1].mean(0).tolist(),
+                max_abs_err=err)
+
+
+def phase_classes(block_chol, device):
+    """[classes]: SAFER2 on the 50k workload at the MSD config (dim
+    512), initialize and two epochs, then two profiled epochs sorted into
+    op classes (``probes/epoch_profile.py::profile_classes``): the
+    classes sum to the kernels' device time within 0.1%, chol_inverse
+    is a class of its own."""
+    import torch
+
+    from safer2_recommender_tpu_torch.models import get_model
+    from safer2_recommender_tpu_torch.probes import epoch_profile
+
+    ds, dd, cfg = epoch_profile.workload("synth50k", device)
+    model = get_model("safer2", cfg, ds.num_users, ds.num_items,
+                      device=device)
+    block_chol.reset_launches()
+    model.initialize(dd)
+    model.train_epochs(dd, 2)
+    t = epoch_profile.profile_classes(model, dd)
+    launches = dict(block_chol.LAUNCHES)
+    for line in epoch_profile.describe_classes(t):
+        say("classes", line)
+    check(abs(t["gap"]) <= 1e-3, f"classes: the classes sum to "
+          f"{t['total_ms']} ms, "
+          f"the kernels to {t['kernel_ms']} ms")
+    check(t["classes"]["chol_inverse"]["launches"] > 0
+          and sum(launches.values()) > 0,
+          f"classes: no chol_inverse launch: {launches}")
+    del model, dd
+    torch.cuda.empty_cache()
+    return dict(t, launches=launches)
+
+
+def phase_roofline(device):
+    """[roofline]: ``probes/roofline.py``: attained rates beside the
+    published peaks."""
+    import math
+
+    from safer2_recommender_tpu_torch.probes import roofline
+
+    rows = roofline.run(device)
+    for row in rows:
+        say("roofline", roofline.describe(row))
+    check(all(math.isfinite(r["rate"]) and r["rate"] > 0 for r in rows),
+          f"roofline: {rows}")
+    return rows
 
 
 def main() -> int:
@@ -2090,17 +2222,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from safer2_recommender_tpu_torch import probes
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(probes.nvidia_smi(), flush=True)
     say("device", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}; matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
@@ -2115,7 +2244,7 @@ def main() -> int:
 
 
 def run_phases(device, ckpt_root: str) -> None:
-    """Phases 2-25; the kernel JSON line at the end. The CLI runs of
+    """Phases 2-29; the kernel JSON line at the end. The CLI runs of
     phases 6, 11, 12 and 13 save their checkpoints under
     ``ckpt_root``."""
     import torch
@@ -2235,7 +2364,7 @@ def run_phases(device, ckpt_root: str) -> None:
         "ML-1M safer2 dim 512", {"f32": f32_model512, "bf16": bf16_model},
         epoch_profile.workload("ml1m", device)[1])
     del fresh, bf16_model, f32_model512, batches, b64
-    release_graphs()
+    probes.release_graphs()
     bf16_profile = phase_profile_dir(cli, block_chol, ckpt_root)
     server50k = phase_server50k(
         {"safer2": synth.pop("model"),
@@ -2247,7 +2376,7 @@ def run_phases(device, ckpt_root: str) -> None:
                 ranks=phase_mesh_ranks(block_chol, device, workload),
                 refused=phase_mesh_refused())
     del workload
-    release_graphs()
+    probes.release_graphs()
     t0 = time.perf_counter()
     dryrun8 = phase_dryrun8()
     say("dryrun8", f"phase {time.perf_counter() - t0:.1f} s")
@@ -2265,7 +2394,17 @@ def run_phases(device, ckpt_root: str) -> None:
     serve_msd = phase_serve_msd(msd_wl, msd_models["safer2"], block_chol)
     say("serve-msd", f"phase {time.perf_counter() - t0:.1f} s")
     del msd_wl, msd_models
-    release_graphs()
+    probes.release_graphs()
+
+    t0 = time.perf_counter()
+    bench = phase_bench(block_chol)
+    say("bench", f"phase {time.perf_counter() - t0:.1f} s")
+    probes.release_graphs()
+    entry = phase_entry(device)
+    t0 = time.perf_counter()
+    classes = phase_classes(block_chol, device)
+    say("classes", f"phase {time.perf_counter() - t0:.1f} s")
+    roofline = phase_roofline(device)
 
     bdot.reset_launches()
     probe = bdot_probe.run(device=device)
@@ -2316,6 +2455,7 @@ def run_phases(device, ckpt_root: str) -> None:
                 name].pop("shapes")
         served[f"mesh{n}_server"] = mesh["ranks"][n]["server"].pop("shapes")
     served["serve_msd"] = serve_msd.pop("shapes")
+    shapes_bench = bench.pop("shapes")
     main_shapes = {
         "largest_ml1m_dim512": max(shapes512, key=size),
         "most_frequent_ml1m_dim512": most_frequent(shapes512),
@@ -2335,7 +2475,9 @@ def run_phases(device, ckpt_root: str) -> None:
         "largest_msd": max(shapes_msd, key=size),
         "most_frequent_msd": most_frequent(shapes_msd),
         "largest_eval_msd": max(shapes_eval_msd, key=size),
-        "most_frequent_eval_msd": most_frequent(shapes_eval_msd)}
+        "most_frequent_eval_msd": most_frequent(shapes_eval_msd),
+        "largest_bench": max(shapes_bench, key=size),
+        "most_frequent_bench": most_frequent(shapes_bench)}
     for key, sh in served.items():
         main_shapes[f"largest_{key}"] = max(sh, key=size)
         main_shapes[f"most_frequent_{key}"] = most_frequent(sh)
@@ -2389,7 +2531,9 @@ def run_phases(device, ckpt_root: str) -> None:
                            for by_r in mesh["ranks"][n][name]["launches_by_r"])
                      + sum(sum(m["launches"].values()) for m in msd.values())
                      + sum(eval_msd["launches"].values())
-                     + sum(serve_msd["launches"].values())),
+                     + sum(serve_msd["launches"].values())
+                     + sum(bench["launches"].values())
+                     + sum(classes["launches"].values())),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
                            + [v["max_abs_err"] for v in main_t.values()]
                            + [served_err]),
@@ -2450,7 +2594,9 @@ def run_phases(device, ckpt_root: str) -> None:
                         for name in MESH_MODELS} for n in MESH_RANKS}},
             "msd": {n: m["launches"] for n, m in msd.items()},
             "eval_msd": eval_msd["launches"],
-            "serve_msd": serve_msd["launches"]},
+            "serve_msd": serve_msd["launches"],
+            "bench": bench["launches"],
+            "classes": classes["launches"]},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
@@ -2473,6 +2619,10 @@ def run_phases(device, ckpt_root: str) -> None:
         "msd": msd,
         "eval_msd": eval_msd,
         "serve_msd": serve_msd,
+        "bench": bench,
+        "entry": entry,
+        "classes": classes,
+        "roofline": roofline,
     }, {
         "name": "bdot",
         "route": "cuda",

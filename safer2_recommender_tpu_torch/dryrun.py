@@ -1,7 +1,12 @@
-"""Multi-device dry run: the counterpart of the JAX package's
-``__graft_entry__.py::dryrun_multichip``.
+"""The serving forward step and the multi-device dry run: the
+counterparts of the JAX package's ``__graft_entry__.py::entry`` and
+``dryrun_multichip``.
 
     python -m safer2_recommender_tpu_torch.dryrun [n] [--device D]
+
+``entry(device)`` returns ``(forward, args)``: full-catalog scores of a
+batch of users and their Recall/NDCG at k = 5, 10, 20, 50, 100
+(``evaluation/metrics.py::topk_metrics``), on the JAX entry's inputs.
 
 Trains every model on ``n`` ranks (``parallel.spawn``; default 8, the
 card) over the row-sharded data: SAFER2++ in both block orders, SAFER2,
@@ -21,18 +26,51 @@ import sys
 from typing import List
 
 import numpy as np
+import torch
 
 from safer2_recommender_tpu_torch import parallel
 from safer2_recommender_tpu_torch.config import Config
 from safer2_recommender_tpu_torch.data.dataset import Dataset, DeviceData
+from safer2_recommender_tpu_torch.evaluation.metrics import topk_metrics
 from safer2_recommender_tpu_torch.models import get_model
-from safer2_recommender_tpu_torch.utils.device import DEFAULT_DEVICE
+from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
+                                                       f32_matmul,
+                                                       resolve_device)
 
 # "+inter" is the reference's per-block order (--block_interleaved)
 RUNS = ("safer2pp", "safer2pp+inter", "safer2", "ials", "ialspp", "erm_mf",
         "cvar_mf")
 SAFER = ("safer2", "safer2pp")
 DUAL_TOL = 0.02
+
+
+ENTRY_K = (5, 10, 20, 50, 100)
+
+
+def entry(device=DEFAULT_DEVICE):
+    """``(forward, args)``: the serving forward step of the flagship model
+    (the full-catalog scoring matmul of a batch of users, then history
+    masking and top-k metrics, as the evaluation runs per chunk) and its
+    inputs, drawn as ``__graft_entry__.py:25-31`` draws them. The ids are
+    int64 (torch indexes with int64); their values are the JAX entry's."""
+    dev = resolve_device(device)
+
+    def forward(user_emb, item_emb, excl, gt, gt_len):
+        with f32_matmul():
+            scores = user_emb @ item_emb.T
+        return topk_metrics(scores, excl, gt, gt_len, ENTRY_K)
+
+    rng = np.random.default_rng(0)
+    b, d, num_items, h, g = 256, 64, 2048, 32, 16
+    user_emb = rng.normal(size=(b, d)).astype(np.float32)
+    item_emb = rng.normal(size=(num_items, d)).astype(np.float32)
+    excl = rng.integers(0, num_items, (b, h)).astype(np.int32)
+    gt = rng.integers(0, num_items, (b, g)).astype(np.int32)
+    gt_len = np.full((b,), g, np.int32)
+    args = tuple(torch.from_numpy(x).to(dev) for x in (user_emb, item_emb))
+    args += tuple(torch.from_numpy(x.astype(np.int64)).to(dev)
+                  for x in (excl, gt, gt_len))
+    return forward, args
 
 
 def dataset() -> Dataset:

@@ -5,6 +5,7 @@ package's ``scripts/probe_*.py``)."""
 from __future__ import annotations
 
 import contextlib
+import gc
 import re
 import subprocess
 import time
@@ -105,6 +106,24 @@ def ptxas_report(src: str, kernel: str) -> List[str]:
         elif name and ("Used" in line or "spill" in line):
             lines[name].append(line.split("info    :")[-1].strip())
     return [f"{k}: {'; '.join(v)}" for k, v in lines.items()]
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def release_graphs() -> None:
+    """Free what models and Servers no longer referenced hold: a
+    Server's programs refer back to it, a cycle only the collector
+    breaks, and its graph pool lives until then."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def sync(device) -> None:

@@ -53,10 +53,11 @@ P50_REPEATS = 5
 TIE_TOL = 1e-5
 
 
-def new_users(n: int, num_items: int) -> Dataset:
+def new_users(n: int, num_items: int, seed: int = SEED) -> Dataset:
     """``n`` new users' histories over ``num_items`` items, drawn as
-    ``bench_serving.py:44-53`` draws them (``default_rng(SEED)``)."""
-    rng = np.random.default_rng(SEED)
+    ``bench_serving.py:44-53`` and ``bench.py::_serve_batch`` draw them
+    (``default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
     hist_len = np.clip(rng.lognormal(np.log(20), 0.8, n), 3,
                        500).astype(np.int64)
     pop = 1.0 / (np.arange(1, num_items + 1) ** 0.8)

@@ -15,10 +15,11 @@ serving builds no new one.
 Where a model's fold-in runs another algorithm for narrow buckets than
 for wide ones (the ++ models at dim >= 128 solve a bucket of width <=
 dim / 2 exactly by one Woodbury solve, a wider one by blockwise sweeps;
-``Recommender._fold_in_split``), a batch is packed as two buckets, the
-short histories under a width rung <= dim / 2, so that every user gets
-what length bucketing (``recommend``) gives them; the program is then
-keyed by both rung pairs.
+``Recommender._fold_in_split``), a batch is split in two sub-batches,
+the short histories under a width rung <= dim / 2, so that every user
+gets what length bucketing (``recommend``) gives them. Each sub-batch
+runs the program of its own rung pair: whether a batch holds a long
+history or not, it replays programs that other batches built.
 
 Each program owns static buffers: the packed history (``row_ids``,
 ``col_ids``, ``length``, ``excl``) and the top-k ids it writes. A
@@ -96,39 +97,32 @@ class _Program:
     """One shape key's program: its static input buffers, the fold they
     make, and, on the card, the captured graph and its output buffer.
 
-    ``shapes`` holds one (B, W) per bucket: the buckets own consecutive
-    row ranges of one [sum B, dim] fold-in table."""
+    ``shapes`` is ``((B, W),)``: one bucket of B rows of width W."""
 
     def __init__(self, server: "Server", shapes: Tuple[Tuple[int, int], ...]):
         model = server.model
         dev, ni = model.device, model.num_items
         i64 = dict(dtype=torch.int64, device=dev)
-        n_pad = sum(b for b, _ in shapes)
-        w_max = max(w for _, w in shapes)
-        self.inputs = dict(excl=torch.full((n_pad, w_max), ni, **i64))
-        buckets, start = [], 0
-        for j, (B, W) in enumerate(shapes):
-            self.inputs.update({
-                f"row{j}": torch.zeros(B, **i64),
-                f"col{j}": torch.zeros((B, W), **i64),
-                f"length{j}": torch.zeros(B, **i64)})
-            # a contiguous bucket: its write-back is a slice of the
-            # fold-in table, never a masked scatter (a host read); on a
-            # mesh, the rank's block of the batch's bucket, solved into
-            # the rank's own table (no row is shared)
-            buckets.append(Bucket(row_ids=self.inputs[f"row{j}"],
-                                  col_ids=self.inputs[f"col{j}"],
-                                  length=self.inputs[f"length{j}"],
-                                  row_start=start, contiguous=True,
-                                  mesh=model.mesh, shared=False))
-            start += B
+        ((B, W),) = shapes
+        self.inputs = dict(excl=torch.full((B, W), ni, **i64),
+                           row=torch.zeros(B, **i64),
+                           col=torch.zeros((B, W), **i64),
+                           length=torch.zeros(B, **i64))
+        # a contiguous bucket: its write-back is a slice of the fold-in
+        # table, never a masked scatter (a host read); on a mesh, the
+        # rank's block of the batch's bucket, solved into the rank's own
+        # table (no row is shared)
+        bucket = Bucket(row_ids=self.inputs["row"],
+                        col_ids=self.inputs["col"],
+                        length=self.inputs["length"], row_start=0,
+                        contiguous=True, mesh=model.mesh, shared=False)
         # gt, gt_len and hist_size are read by evaluation only
         fold = FoldInData(
-            by_user=tuple(buckets), excl=self.inputs["excl"],
-            gt=torch.full((n_pad, 1), ni, **i64),
-            gt_len=torch.zeros(n_pad, **i64),
-            hist_size=torch.zeros(n_pad, device=dev),
-            n_eval=n_pad, n_pad=n_pad, num_items=ni, nnz=0)
+            by_user=(bucket,), excl=self.inputs["excl"],
+            gt=torch.full((B, 1), ni, **i64),
+            gt_len=torch.zeros(B, **i64),
+            hist_size=torch.zeros(B, device=dev),
+            n_eval=B, n_pad=B, num_items=ni, nnz=0)
         state, prep = server._frozen
 
         def fn() -> torch.Tensor:
@@ -304,8 +298,8 @@ class Server:
 
     def _pack(self, users: np.ndarray, items: np.ndarray):
         """Split a request into rung-shaped sub-batches; yields
-        (distinct user ids, shapes, packed host arrays, rows) per
-        sub-batch, where ``rows[j]`` is user j's row of the output."""
+        (distinct user ids, shape key, packed host arrays) per sub-batch;
+        user j's ids are row j of its program's output."""
         if users.shape != items.shape:
             raise ValueError(f"request user/item id arrays differ in "
                              f"shape: {users.shape} vs {items.shape}")
@@ -321,88 +315,61 @@ class Server:
         items = np.ascontiguousarray(items)[order].astype(np.int64)
         if self._perm is not None:
             items = self._perm[items]
-        max_b = self.batch_sizes[-1]
-        starts = np.concatenate(([0], np.cumsum(counts)))
-        for lo in range(0, uniq.size, max_b):
-            hi = min(lo + max_b, uniq.size)
-            yield (uniq[lo:hi],) + self._pack_one(
-                counts[lo:hi], items[starts[lo]:starts[hi]])
-
-    def _pack_one(self, counts: np.ndarray, items: np.ndarray):
-        """One sub-batch as buckets: one bucket, or two where the model's
-        fold-in runs another algorithm at and below a width
-        (``Recommender._fold_in_split``): the short rows then get a width
-        rung at or below it, as length bucketing would give them."""
+        # where the model's fold-in runs another algorithm at and below a
+        # width (Recommender._fold_in_split), the short rows are a
+        # sub-batch of their own with a width rung at or below it, as
+        # length bucketing would give them
         split = self.model._fold_in_split()
         if split is None:
-            groups = [(np.arange(counts.size), self.widths)]
+            groups = [(np.arange(uniq.size), self.widths)]
         else:
             short = counts <= split
             narrow = tuple(sorted({w for w in self.widths if w < split}
                                   | {split}))
             groups = [(np.flatnonzero(short), narrow),
                       (np.flatnonzero(~short), self.widths)]
-        first = np.concatenate(([0], np.cumsum(counts)[:-1]))
-        shapes, parts, packed = [], [], {}
-        rows = np.empty(counts.size, np.int64)
+        max_b = self.batch_sizes[-1]
+        starts = np.concatenate(([0], np.cumsum(counts)))
         for sel, ladder in groups:
-            if sel.size == 0:
-                continue
-            j, start = len(shapes), sum(b for b, _ in shapes)
-            c = counts[sel]
-            B = self._rung(self.batch_sizes, sel.size)
-            W = self._rung(ladder, int(c.max()))
-            off = _segment_arange(c)
-            row_of = np.repeat(np.arange(sel.size), c)
-            got = items[np.repeat(first[sel], c) + off]
-            col = np.zeros((B, W), np.int64)
-            col[row_of, off] = got
-            row = np.full(B, B, np.int64)   # pads out of bounds, as in JAX
-            row[:sel.size] = np.arange(sel.size)
-            length = np.zeros(B, np.int64)
-            length[:sel.size] = c
-            packed.update({f"row{j}": row, f"col{j}": col,
-                           f"length{j}": length})
-            rows[sel] = start + np.arange(sel.size)
-            parts.append((start + row_of, off, got))
-            shapes.append((B, W))
-        n_pad = sum(b for b, _ in shapes)
-        excl = np.full((n_pad, max(w for _, w in shapes)),
-                       self.model.num_items, np.int64)
-        for r, off, got in parts:
-            excl[r, off] = got
-        packed["excl"] = excl
-        if self.model.mesh is not None:
-            return self._shard(shapes, packed, rows)
-        return tuple(shapes), packed, rows
+            for lo in range(0, sel.size, max_b):
+                part = sel[lo:lo + max_b]
+                c = counts[part]
+                got = items[np.repeat(starts[part], c) + _segment_arange(c)]
+                yield (uniq[part],) + self._pack_one(c, got, ladder)
 
-    def _shard(self, shapes, packed, rows):
-        """This rank's block of each bucket of a packed batch: its shape
-        key, its packed arrays (the buckets' blocks as consecutive row
-        ranges of the rank's fold-in table) and, for each user, the row
-        of the ids all-gathered from every rank in rank order."""
-        mesh = self.model.mesh
-        s = mesh.world_size
-        local = [b // s for b, _ in shapes]
-        n_loc = sum(local)
-        out, src, excl = {}, [], []
-        start = lstart = 0
-        for j, ((b, w), bl) in enumerate(zip(shapes, local)):
-            lo, hi = mesh_lib.row_range(mesh, b)
-            row = packed[f"row{j}"][lo:hi]
-            out[f"row{j}"] = np.where(row < b, row - lo, bl)
-            out[f"col{j}"] = packed[f"col{j}"][lo:hi]
-            out[f"length{j}"] = packed[f"length{j}"][lo:hi]
-            excl.append(packed["excl"][start + lo:start + hi])
-            # global row start + r * bl + i is gathered row
-            # r * n_loc + lstart + i
-            src.append((np.arange(s)[:, None] * n_loc + lstart
-                        + np.arange(bl)[None, :]).reshape(-1))
-            start += b
-            lstart += bl
-        out["excl"] = np.concatenate(excl)
-        return (tuple((bl, w) for bl, (_, w) in zip(local, shapes)), out,
-                np.concatenate(src)[rows])
+    def _pack_one(self, counts: np.ndarray, items: np.ndarray,
+                  ladder: Tuple[int, ...]):
+        """One sub-batch as one bucket on the width rungs ``ladder``:
+        (shape key, packed host arrays)."""
+        n = counts.size
+        B = self._rung(self.batch_sizes, n)
+        W = self._rung(ladder, int(counts.max()))
+        off = _segment_arange(counts)
+        row_of = np.repeat(np.arange(n), counts)
+        col = np.zeros((B, W), np.int64)
+        col[row_of, off] = items
+        row = np.full(B, B, np.int64)   # pads out of bounds, as in JAX
+        row[:n] = np.arange(n)
+        length = np.zeros(B, np.int64)
+        length[:n] = counts
+        excl = np.full((B, W), self.model.num_items, np.int64)
+        excl[row_of, off] = items
+        packed = {"row": row, "col": col, "length": length, "excl": excl}
+        if self.model.mesh is not None:
+            return self._shard(B, W, packed)
+        return ((B, W),), packed
+
+    def _shard(self, B: int, W: int, packed):
+        """This rank's block of a packed sub-batch on a (B, W) rung: its
+        shape key and packed arrays. The blocks are contiguous, so the
+        ids all-gathered from every rank in rank order keep each user's
+        row."""
+        lo, hi = mesh_lib.row_range(self.model.mesh, B)
+        bl = hi - lo
+        row = packed["row"][lo:hi]
+        out = {"row": np.where(row < B, row - lo, bl),
+               **{k: packed[k][lo:hi] for k in ("col", "length", "excl")}}
+        return ((bl, W),), out
 
     # ---- serving surface ----------------------------------------------------
 
@@ -417,7 +384,7 @@ class Server:
         on_card = self.model.device.type == "cuda"
         out = []
         with f32_matmul():
-            for users, shapes, packed, rows in self._pack(u, i):
+            for users, shapes, packed in self._pack(u, i):
                 self._refresh_state()
                 prog = self._program(shapes)
                 src = {k: torch.from_numpy(v) for k, v in packed.items()}
@@ -435,9 +402,9 @@ class Server:
                     done = torch.cuda.Event()
                     done.record(torch.cuda.current_stream(ids.device))
                     # src stays referenced until the copies have run
-                    out.append((users, rows, host, done, src))
+                    out.append((users, host, done, src))
                 else:
-                    out.append((users, rows, ids, None, src))
+                    out.append((users, ids, None, src))
         return out
 
     def _fetch(self, dispatched) -> Tuple[np.ndarray, np.ndarray]:
@@ -445,15 +412,19 @@ class Server:
             return (np.zeros(0, np.int32),
                     np.zeros((0, self.k), np.int64))
         us, ids = [], []
-        for users, rows, host, done, _ in dispatched:
+        for users, host, done, _ in dispatched:
             if done is not None:
                 done.synchronize()
-            arr = host.numpy()[rows]
+            arr = host.numpy()[:users.size]
             if self._order is not None:
                 arr = self._order[arr]
             us.append(users)
             ids.append(arr)
-        return np.concatenate(us), np.concatenate(ids, axis=0)
+        # sub-batches of short and long rows: back to ascending user ids,
+        # as recommend() returns them
+        users = np.concatenate(us)
+        order = np.argsort(users, kind="stable")
+        return users[order], np.concatenate(ids, axis=0)[order]
 
     def recommend(self, histories) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k for one request batch: a ``Dataset`` (or ``(user_ids,

@@ -37,7 +37,7 @@ def test_port_imports_no_jax():
                 "models.erm_mf", "models.cvar_mf", "models.safer2pp",
                 "serving", "checkpoint", "parallel.mesh", "parallel.audit",
                 "probes.scale", "probes.eval_scale", "probes.serving_scale",
-                "probes.multichip", "dryrun"):
+                "probes.multichip", "dryrun", "bench", "probes.roofline"):
         assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
 
 

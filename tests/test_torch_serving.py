@@ -246,10 +246,30 @@ def test_server_equals_recommend_for_each_model(tiny_module, name, dim):
         np.testing.assert_array_equal(sids, dids)
     split = m._fold_in_split()
     assert split == (64 if dim == 128 else None)
-    # the mixed request: one bucket of width 128, or a short bucket under
-    # the split beside a long one
-    assert list(srv.programs()) == [((64, 32),), ((64, 32), (64, 128))
-                                    if split else ((64, 128),)]
+    # the mixed request: one bucket of width 128, or under the split its
+    # short rows on the first request's program and its long ones on a
+    # program of their own (one program per rung pair)
+    assert list(srv.programs()) == [((64, 32),), ((64, 128),)]
+
+
+def test_server_builds_no_program_when_long_rows_come_and_go(tiny_module):
+    # at dim 128 short (<= 64 items) and long rows run as sub-batches of
+    # their own: a batch with long rows, one without and one with only
+    # long rows replay the programs of the rung pairs the first built
+    ds, dd = tiny_module
+    m = _train(ds, dd, dim=128, block_size=32)
+    srv = Server(m, k=10)
+    mixed = _mixed_request(ds, seed=13)
+    srv.recommend(mixed)
+    assert list(srv.programs()) == [((64, 32),), ((64, 128),)]
+    n_long = 12 * 70
+    longs = Dataset(mixed.user_ids[-n_long:], mixed.item_ids[-n_long:])
+    for req in (_request(ds, 40, seed=11), longs, mixed):
+        su, sids = srv.recommend(req)
+        du, dids = m.recommend(req, k=10)
+        np.testing.assert_array_equal(su, du)
+        np.testing.assert_array_equal(sids, dids)
+    assert srv.num_compiles == 2 and srv.replays == 6
 
 
 @pytest.mark.parametrize("name,dim", [("safer2", 8), ("safer2pp", 128)])

@@ -218,7 +218,26 @@ Phases, each printing lines to stdout tagged with its name:
      device time within 0.1%, and the catch-all is split by the port's
      calling line;
  29. roofline: probes/roofline.py's attained rates beside the published
-     peaks.
+     peaks;
+ 30. ops (after phase 29): the four op-family probes at the JAX scripts'
+     full sizes, each reading beside its bound: probes/quantile.py
+     (CVaR-MF's exact xi at n = 571,000, alpha = 0.3: topk, sort,
+     kthvalue and ops/quantile.py::exact_quantile bit-equal to each
+     other and to numpy's np.partition), probes/gather.py (the zipf row
+     gathers, the [2048, 160] bucket gathers and the port's
+     gather_history, equal bit for bit to the float32 gather cast to
+     their dtype and to a host gather at sampled slots; the 2,048-row
+     write-backs and the port's scatter_bucket, each leaving numpy's
+     table, with their host reads), probes/eigh.py (cuSOLVER eigh of the
+     512 Gramian, the [2, 512] stack and the 11 sizes of
+     probe_eigh2.py, finite, the float64 route's reconstruction within
+     RECON_TOL = 1e-5 and the float32 route's (cuSOLVER's Jacobi, which
+     the port runs) within ROUTE_TOL = 5e-3, the JAX package's bound on
+     the eigenbases of its Woodbury path; Newton-Schulz; the drift
+     readings; the port's refresh_eigh branch and ms beside a cold eigh)
+     and probes/seqdot.py (dependent
+     products at d = 256 and 512: each chain's first three products
+     within 1e-4 of a float64 chain on the card, 1e-2 in TF32).
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -2209,6 +2228,52 @@ def phase_roofline(device):
     return rows
 
 
+def phase_ops(device) -> None:
+    """[ops]: the four op-family probes (probes/quantile.py, gather.py,
+    eigh.py, seqdot.py) at the JAX scripts' full sizes on the card; each
+    reading printed beside its bound, and every check of the docstring's
+    phase 30 held."""
+    import math
+
+    from safer2_recommender_tpu_torch.probes import (eigh, gather,
+                                                     quantile, seqdot)
+
+    q = quantile.run(device)
+    for row in q["rows"]:
+        say("ops", "quantile " + quantile.describe(q, row))
+    xis = {row["name"]: row["xi"] for row in q["rows"]}
+    check(set(xis.values()) == {q["host_xi"]},
+          f"ops: xi {xis} against np.partition's {q['host_xi']}")
+
+    rows = gather.run(device)
+    for row in rows:
+        say("ops", "gather " + gather.describe(row))
+    bad = [row["name"] for row in rows
+           if not row.get("equal", True) or not row.get("host_equal", True)]
+    check(not bad, f"ops: gathers or write-backs that differ: {bad}")
+
+    res = eigh.run(device)
+    for line in eigh.describe(res):
+        say("ops", "eigh " + line)
+    bad = [row["name"] for row in eigh.eigh_rows(res)
+           if not eigh.eigh_ok(row)]
+    check(not bad, f"ops: eigh rows not finite, or reconstructions over "
+          f"{eigh.RECON_TOL} (float64 route) or {eigh.ROUTE_TOL} (float32 "
+          f"route): {bad}")
+    shared = res["shared"]
+    check(shared["newton_schulz"]["finite"]
+          and all(map(math.isfinite, shared["drift"].values()))
+          and math.isfinite(shared["refresh"]["error"]),
+          f"ops: eigh readings not finite: {shared}")
+
+    rows = seqdot.run(device)
+    for row in rows:
+        say("ops", "seqdot " + seqdot.describe(row))
+    bad = [(row["d"], row["name"], row["precision"]) for row in rows
+           if not max(row["errors"]) <= row["tol"]]
+    check(not bad, f"ops: dependent products off the float64 chain: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -2244,7 +2309,7 @@ def main() -> int:
 
 
 def run_phases(device, ckpt_root: str) -> None:
-    """Phases 2-29; the kernel JSON line at the end. The CLI runs of
+    """Phases 2-30; the kernel JSON line at the end. The CLI runs of
     phases 6, 11, 12 and 13 save their checkpoints under
     ``ckpt_root``."""
     import torch
@@ -2405,6 +2470,9 @@ def run_phases(device, ckpt_root: str) -> None:
     classes = phase_classes(block_chol, device)
     say("classes", f"phase {time.perf_counter() - t0:.1f} s")
     roofline = phase_roofline(device)
+    t0 = time.perf_counter()
+    phase_ops(device)
+    say("ops", f"phase {time.perf_counter() - t0:.1f} s")
 
     bdot.reset_launches()
     probe = bdot_probe.run(device=device)

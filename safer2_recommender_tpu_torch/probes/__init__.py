@@ -80,6 +80,75 @@ def graph_ms(fn: Callable, calls: int = 20) -> float:
     return cuda_ms(graph.replay, iters=5, warmup=1) / calls
 
 
+# The chain lengths ``chain_ms`` differences (scripts/probe_seqdot.py's)
+CHAIN_KS = (16, 128)
+
+
+def chain_ms(step: Callable, x0: torch.Tensor) -> float:
+    """Device ms of one step of the dependent chain x <- step(x) from
+    ``x0``: a CUDA graph of k steps replayed at each k of ``CHAIN_KS``,
+    the difference of the two over the difference of the k (the JAX
+    scripts' scan-length differencing, without the host's launches)."""
+    def chain(k):
+        def run():
+            x = x0
+            for _ in range(k):
+                x = step(x)
+            return x
+        return run
+
+    lo, hi = (graph_ms(chain(k), calls=1) for k in CHAIN_KS)
+    return (hi - lo) / (CHAIN_KS[1] - CHAIN_KS[0])
+
+
+def host_reads(fn: Callable) -> int:
+    """Synchronizing CUDA calls (the host waiting on the card, a read
+    back included) made by one call of ``fn``, as torch's sync debug
+    mode reports them; call ``fn`` once before, so that one-time set-up
+    is not counted."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def kernel_names(fn: Callable) -> List[str]:
+    """The device kernels that one call of ``fn`` ran, the longest
+    first (``torch.profiler``); empty if three profiles of a call
+    recorded no device event (late in a long process the profiler
+    sometimes records none for a short call)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from safer2_recommender_tpu_torch.probes.epoch_profile import (
+        device_events, event_ms)
+
+    ms: Counter = Counter()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in device_events(prof.events()):
+            ms[e.name] += event_ms(e)
+        if ms:
+            break
+    return [name for name, _ in ms.most_common()]
+
+
+def describe_kernels(names: List[str], top: int = 2) -> str:
+    """The first ``top`` kernel names, shortened, or "not recorded"."""
+    return ", ".join(k[:60] for k in names[:top]) or "not recorded"
+
+
 def ptxas_report(src: str, kernel: str) -> List[str]:
     """What ``nvcc -Xptxas -v`` says of each kernel in ``src`` whose name
     matches the regular expression ``kernel``: one line per

@@ -1,0 +1,320 @@
+"""The shared Gramian's eigendecomposition on the GPU: cuSOLVER's eigh at
+512 and by size and batch, the matmul-only alternative, and the port's
+warm-started refresh (the counterpart of the JAX package's
+``scripts/probe_eigh.py`` and ``scripts/probe_eigh2.py``, which asked the
+same of XLA on a TPU).
+
+    python -m safer2_recommender_tpu_torch.probes.eigh [--part shared|sizes|all]
+
+Inputs are the scripts', drawn from ``np.random.default_rng(0)`` in
+their order and at their sizes. ``shared`` (``probe_eigh.py``): the
+Gramian G = V^T V of 40,000 x 512 rows V with a decaying column scale,
+formed in float64 on the host (NumPy 2 promotes the script's float32
+draws divided by ``np.sqrt(D)`` to float64) and rounded to float32 on
+the way to the card, as ``jnp.asarray`` rounds it; in the script's
+order:
+
+- ``torch.linalg.eigh`` of G and of the [2, 512, 512] stack [G, 1.1 G],
+  per call, and the relative error of Q diag(w) Q^T against G;
+- 30 Newton-Schulz iterations x <- 1.5 x - 0.5 x x x from G / ||G||,
+  per iteration from CUDA graphs of dependent iterations (differenced at
+  two lengths), with TFLOP/s;
+- a 1% drift G2 of G: the off-diagonal share of Q^T G2 Q in the old
+  basis, and the error of keeping the old basis;
+- the port's own ``woodbury.refresh_eigh`` on G2 from G's basis at
+  ``Config().eig_refresh_tol``: the branch it took (``SOLVE_PATHS``),
+  its reconstruction error, and its ms per call beside a cold eigh of G2.
+
+``sizes`` (``probe_eigh2.py``): ``torch.linalg.eigh`` of random Gramians
+at each (batch, d) of ``SIZES``, per call beside one matrix of the batch
+alone, and the error of each.
+
+eigh reads the host after each call (torch checks cuSOLVER's ``info``),
+so it is timed per call by CUDA events after a warm-up, that read
+included (the host reads of one call are counted), and never from a
+graph. Each eigh row names the device kernels that one call ran (the
+cuSOLVER route) and its bound: 2 d^2 x 4 bytes against 9 d^3 FLOPs a
+matrix (the symmetric QR algorithm with vectors, Golub and Van Loan) at
+67 TFLOP/s. Beside the float32 call, which the port's Woodbury path
+makes, each row decomposes the same input in float64 on the card and
+rounds the result to float32 (its ms and error): cuSOLVER's float32
+route for 32 <= d <= 512 is Jacobi (``syevj``), whose eigenvectors are
+orthogonal only to ~1e-3 at d = 512 (``orth``, ||Q^T Q - I||_F). Every
+product runs at ``"highest"`` (float32, no TF32). A reading that is not
+finite fails, as does a float64-route reconstruction above ``RECON_TOL``
+or a float32 one above ``ROUTE_TOL``. A machine without CUDA is an
+error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from safer2_recommender_tpu_torch import probes
+from safer2_recommender_tpu_torch.config import Config
+from safer2_recommender_tpu_torch.ops import woodbury
+from safer2_recommender_tpu_torch.utils.device import matmul_precision
+
+PARTS = ("shared", "sizes")
+D = 512
+GRAM_ROWS = 40_000
+NS_ITERS = 30
+SIZES = ((1, 512), (2, 512), (1, 256), (2, 256), (4, 256), (1, 128),
+         (4, 128), (8, 128), (8, 64), (16, 64), (16, 32))
+# Reconstruction error ||Q diag(w) Q^T - G|| / ||G|| of an exact float32
+# eigendecomposition (LAPACK's on the CPU, the card's float64 route
+# rounded), and the bound the JAX package's tests hold an eigenbasis its
+# Woodbury path runs on to (tests/test_torch_woodbury.py, the warm path):
+# the card's float32 route lies between the two (PERF.md)
+RECON_TOL = 1e-5
+ROUTE_TOL = 5e-3
+
+
+def shared_inputs(d: int = D, rows: int = GRAM_ROWS
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """``probe_eigh.py``'s G and the drift added to it, each rounded to
+    float32 from its float64 product as ``jnp.asarray`` rounds it; G2 is
+    then ``G + drift``, symmetrized, on the device (``drifted``)."""
+    rng = np.random.default_rng(0)
+    # float64 from here, as NumPy 2 promotes the script's float32 / sqrt
+    v = rng.normal(size=(rows, d)).astype(np.float32).astype(
+        np.float64) / np.sqrt(d)
+    v *= (1.0 / np.sqrt(np.arange(1, d + 1)))[None, :] * 3
+    g = (v.T @ v).astype(np.float32)
+    drift = 0.01 * (v.T @ (v * rng.normal(size=(rows, 1)).astype(
+        np.float32) * 0.05))
+    return g, drift.astype(np.float32)
+
+
+def drifted(g: torch.Tensor, drift: torch.Tensor) -> torch.Tensor:
+    g2 = g + drift
+    return 0.5 * (g2 + g2.T)
+
+
+def sizes_inputs() -> List[Tuple[int, int, np.ndarray]]:
+    """``probe_eigh2.py``'s Gramians: (batch, d, float32 [batch, d, d],
+    or [d, d] at batch 1) in ``SIZES``' order."""
+    rng = np.random.default_rng(0)
+    out = []
+    for batch, d in SIZES:
+        a = rng.normal(size=(batch, d, d)).astype(np.float32)
+        g = np.einsum("nab,ncb->nac", a, a) / d
+        out.append((batch, d, g if batch > 1 else g[0]))
+    return out
+
+
+def reconstruction_error(w: torch.Tensor, q: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """||Q diag(w) Q^T - G||_F / ||G||_F, per matrix of a batch."""
+    with matmul_precision("highest"):
+        r = (q * w[..., None, :]) @ q.mT
+    return (torch.linalg.norm(r - g, dim=(-2, -1))
+            / torch.linalg.norm(g, dim=(-2, -1)))
+
+
+def ns_step(x: torch.Tensor) -> torch.Tensor:
+    """One Newton-Schulz iteration, ``probe_eigh.py``'s body."""
+    return 1.5 * x - 0.5 * ((x @ x) @ x)
+
+
+def newton_schulz(g: torch.Tensor) -> torch.Tensor:
+    """``NS_ITERS`` iterations from G / ||G||."""
+    x = g / torch.linalg.norm(g)
+    for _ in range(NS_ITERS):
+        x = ns_step(x)
+    return x
+
+
+def drift_readings(q: torch.Tensor, g2: torch.Tensor) -> Dict[str, float]:
+    """In G's basis ``q``: ||offdiag(B)|| / ||B|| of B = Q^T G2 Q, and the
+    error of Q diag(B) Q^T (the stale basis) against G2."""
+    with matmul_precision("highest"):
+        b = q.T @ g2 @ q
+        diag = torch.diagonal(b)
+        off = b - torch.diag(diag)
+        stale = (q * diag) @ q.T
+    return {"offdiag_share": float(torch.linalg.norm(off)
+                                   / torch.linalg.norm(b)),
+            "stale_error": float(torch.linalg.norm(stale - g2)
+                                 / torch.linalg.norm(g2))}
+
+
+def refresh(g2: torch.Tensor, q: torch.Tensor,
+            tol: float) -> Tuple[str, torch.Tensor, torch.Tensor]:
+    """``woodbury.refresh_eigh(g2, q, tol)``: (the branch it took,
+    "warm" or "cold", Q, lam)."""
+    warm = woodbury.SOLVE_PATHS["refresh_warm"]
+    with matmul_precision("highest"):
+        q2, lam = woodbury.refresh_eigh(g2, q, tol)
+    return ("warm" if woodbury.SOLVE_PATHS["refresh_warm"] > warm
+            else "cold"), q2, lam
+
+
+def eigh_bound(batch: int, d: int) -> dict:
+    return probes.bound(batch * 4 * (2 * d * d + d), batch * 9.0 * d ** 3)
+
+
+def orthogonality(q: torch.Tensor) -> float:
+    """max over a batch of ||Q^T Q - I||_F, in float64."""
+    q = q.double()
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    return float(torch.linalg.norm(q.mT @ q - eye, dim=(-2, -1)).max())
+
+
+def _eigh_row(name: str, x: torch.Tensor, single_ms=None) -> dict:
+    """Time, host reads, route, bound, errors and orthogonality of eigh
+    of ``x`` in float32, and of the float64 route rounded."""
+    fn = lambda: torch.linalg.eigh(x)  # noqa: E731
+    ms = probes.cuda_ms(fn)
+    w, q = fn()
+    err = reconstruction_error(w, q, x).reshape(-1)
+    x64 = x.double()
+    f64_ms = probes.cuda_ms(lambda: torch.linalg.eigh(x64))
+    w64, q64 = torch.linalg.eigh(x64)
+    err64 = reconstruction_error(w64.float(), q64.float(), x).reshape(-1)
+    batch = 1 if x.dim() == 2 else x.shape[0]
+    d = x.shape[-1]
+    row = dict(name=name, batch=batch, d=d, ms=ms,
+               host_reads=probes.host_reads(fn),
+               kernels=probes.kernel_names(fn), error=float(err.max()),
+               orth=orthogonality(q), f64_ms=f64_ms,
+               error_f64=float(err64.max()), orth_f64=orthogonality(
+                   q64.float()),
+               finite=bool(torch.isfinite(w).all() and torch.isfinite(q).all()
+                           and torch.isfinite(err).all()
+                           and torch.isfinite(err64).all()),
+               **eigh_bound(batch, d))
+    if single_ms is not None:
+        row["single_ms"] = single_ms
+    return row
+
+
+def eigh_ok(row: dict) -> bool:
+    """The row's checks: finite, the float64 route within ``RECON_TOL``
+    and the float32 route within ``ROUTE_TOL``."""
+    return (row["finite"] and row["error_f64"] <= RECON_TOL
+            and row["error"] <= ROUTE_TOL)
+
+
+def _shared(device) -> dict:
+    g_host, drift_host = shared_inputs()
+    g = torch.from_numpy(g_host).to(device)
+    rows = [_eigh_row(f"eigh {D}", g),
+            _eigh_row(f"eigh [2,{D}]", torch.stack([g, g * 1.1]))]
+    with matmul_precision("highest"):
+        x = g / torch.linalg.norm(g)
+        per_iter = probes.chain_ms(ns_step, x)
+        ns = newton_schulz(g)
+    ns_ms = NS_ITERS * per_iter
+    flop = NS_ITERS * 2 * 2 * D ** 3
+    newton = dict(ms=ns_ms, iters=NS_ITERS, tflops=flop / (ns_ms * 1e-3)
+                  / 1e12, finite=bool(torch.isfinite(ns).all()),
+                  **probes.bound(NS_ITERS * 2 * 4 * D * D, flop))
+
+    w, q = torch.linalg.eigh(g)
+    g2 = drifted(g, torch.from_numpy(drift_host).to(device))
+    drift = drift_readings(q, g2)
+    tol = Config().eig_refresh_tol
+    branch, q2, lam2 = refresh(g2, q, tol)
+    times = probes.in_turns({
+        "refresh_eigh": lambda: refresh(g2, q, tol),
+        "cold eigh": lambda: torch.linalg.eigh(g2)})
+    current = dict(branch=branch, tol=tol, ms=times["refresh_eigh"],
+                   cold_ms=times["cold eigh"],
+                   error=float(reconstruction_error(lam2, q2, g2)))
+    return dict(eigh=rows, newton_schulz=newton, drift=drift,
+                refresh=current)
+
+
+def _sizes(device) -> List[dict]:
+    rows = []
+    for batch, d, g in sizes_inputs():
+        x = torch.from_numpy(g).to(device)
+        single = None
+        if batch > 1:
+            one = x[0].contiguous()
+            single = probes.cuda_ms(lambda: torch.linalg.eigh(one))
+        rows.append(_eigh_row(f"eigh[{batch:2d},{d:3d}]", x, single))
+    return rows
+
+
+def run(device="cuda", parts=PARTS) -> dict:
+    """Measure ``parts`` on ``device`` (a CUDA device): {"shared":
+    {...}, "sizes": [rows]} for the parts asked."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the eigh probe measures a CUDA device, not "
+                         f"{device}")
+    out = {}
+    if "shared" in parts:
+        out["shared"] = _shared(device)
+    if "sizes" in parts:
+        out["sizes"] = _sizes(device)
+    return out
+
+
+def eigh_rows(res: dict) -> List[dict]:
+    """Every eigh row of a ``run`` result."""
+    return res.get("shared", {}).get("eigh", []) + res.get("sizes", [])
+
+
+def describe_eigh(row: dict) -> str:
+    line = (f"{row['name']}: {row['ms']:.4f} ms per call (its "
+            f"{row['host_reads']} host read(s) included)")
+    if "single_ms" in row:
+        ratio = row["ms"] / (row["batch"] * row["single_ms"])
+        line += (f", one matrix alone {row['single_ms']:.4f} ms, batch / "
+                 f"(batch x one) {ratio:.2f}"
+                 + (" (the batch costs more than its matrices alone)"
+                    if ratio > 1 else ""))
+    return (line + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']}"
+            f" ({100 * row['bound_ms'] / row['ms']:.2f}%); reconstruction "
+            f"rel err {row['error']:.2e} (tol {ROUTE_TOL:g}), orth "
+            f"{row['orth']:.2e}; float64 route {row['f64_ms']:.4f} ms, rel "
+            f"err {row['error_f64']:.2e} (tol {RECON_TOL:g}), orth "
+            f"{row['orth_f64']:.2e}; kernels: "
+            + probes.describe_kernels(row["kernels"], 3))
+
+
+def describe(res: dict) -> List[str]:
+    lines = []
+    if "shared" in res:
+        s = res["shared"]
+        ns, dr, cur = s["newton_schulz"], s["drift"], s["refresh"]
+        lines += [describe_eigh(row) for row in s["eigh"]] + [
+            f"{ns['iters']} Newton-Schulz {D}-matmul iterations: "
+            f"{ns['ms']:.4f} ms (~{ns['tflops']:.1f} TFLOP/s; per iteration "
+            f"from CUDA graphs of dependent iterations), bound "
+            f"{ns['bound_ms']:.4f} ms by {ns['bound_by']}",
+            f"after 1%-drift: offdiag/diag = {dr['offdiag_share']:.2e}; "
+            f"stale-basis recon rel err: {dr['stale_error']:.2e}",
+            f"refresh_eigh (current) on the drifted G from the cold basis at "
+            f"tol {cur['tol']}: {cur['branch']} branch, {cur['ms']:.4f} ms "
+            f"per call beside cold eigh {cur['cold_ms']:.4f} ms; recon rel "
+            f"err {cur['error']:.2e}"]
+    lines += [describe_eigh(row) for row in res.get("sizes", [])]
+    return lines
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--part", choices=PARTS + ("all",), default="all")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("probe: torch.cuda.is_available() is false; this probe "
+              "measures an NVIDIA GPU", file=sys.stderr)
+        return 1
+    print(probes.nvidia_smi(), flush=True)
+    res = run(parts=PARTS if args.part == "all" else (args.part,))
+    for line in describe(res):
+        print(line, flush=True)
+    return 0 if all(map(eigh_ok, eigh_rows(res))) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

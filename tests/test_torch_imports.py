@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
                 "models.erm_mf", "models.cvar_mf", "models.safer2pp",
                 "serving", "checkpoint", "parallel.mesh", "parallel.audit",
                 "probes.scale", "probes.eval_scale", "probes.serving_scale",
-                "probes.multichip", "dryrun", "bench", "probes.roofline"):
+                "probes.multichip", "dryrun", "bench", "probes.roofline",
+                "probes.quantile", "probes.gather", "probes.eigh",
+                "probes.seqdot"):
         assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
 
 

@@ -230,14 +230,35 @@ Phases, each printing lines to stdout tagged with its name:
      write-backs and the port's scatter_bucket, each leaving numpy's
      table, with their host reads), probes/eigh.py (cuSOLVER eigh of the
      512 Gramian, the [2, 512] stack and the 11 sizes of
-     probe_eigh2.py, finite, the float64 route's reconstruction within
-     RECON_TOL = 1e-5 and the float32 route's (cuSOLVER's Jacobi, which
-     the port runs) within ROUTE_TOL = 5e-3, the JAX package's bound on
-     the eigenbases of its Woodbury path; Newton-Schulz; the drift
-     readings; the port's refresh_eigh branch and ms beside a cold eigh)
-     and probes/seqdot.py (dependent
+     probe_eigh2.py, finite, the port's own route
+     (ops/woodbury.py::sym_eigh) and the float64 route reconstructing
+     within RECON_TOL = 1e-5 and the port's orthogonal within ORTH_TOL =
+     1e-4, cuSOLVER's float32 call (Jacobi) a reading; the port's route
+     at every shape the epochs give it (ROUTE_SHAPES) held to the same,
+     beside the candidate routes' ms and errors; Newton-Schulz; the
+     drift readings; the port's refresh_eigh branch and ms beside a cold
+     eigh) and probes/seqdot.py (dependent
      products at d = 256 and 512: each chain's first three products
      within 1e-4 of a float64 chain on the card, 1e-2 in TF32).
+ 31. oracle (after phase 30): probes/oracle.py's run on the card: each
+     of the six models (the ++ models in both orders) built through
+     get_model and DeviceData.build at dims 8, 128 and 512 (and the
+     frozen ++ models at dim 64, block 32, the block-level Woodbury),
+     its initial tables exported and its epochs (two for CVaR-MF, and
+     for SAFER2, iALS and iALS++ at 256 and 512) held to the float64
+     numpy oracle run from the same tables: rtol 2e-4, atol 2e-5 x
+     max(1, dim / 8) on both tables, whichever refresh branch the epoch
+     took; each epoch's branch the expected one (cold at 512; the warm
+     refresh's second epochs at 256 are readings); at 512 every solve
+     route of the model's epoch takes rows (the wide one through a
+     lowered WIDE_SLAB_BYTES), every epoch within a max abs error of
+     oracle.SHARP_ABS_512 (1.5e-5), and the same epochs run again with
+     the raw float32 torch.linalg.eigh in place of woodbury.sym_eigh,
+     the control: it must exceed that limit where the epoch decomposes
+     the full-dim Gramian; the rows by route, the oracle's host
+     seconds. Phases 9 and 10 also hold the
+     eigenbases their models carry after the last epoch orthogonal
+     within BASIS_ORTH_TOL.
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -317,6 +338,9 @@ GRAM_REL_TOL = 1e-5
 # record it is held to (BASELINE.md "Interleaved mode records")
 INTERLEAVED_EPOCHS = 50
 CG_EPOCHS_DIM512 = 3
+# the orthogonality ||Q^T Q - I||_F the JAX package holds its carried
+# (warm-refreshed) eigenbasis to (tests/test_torch_woodbury.py)
+BASIS_ORTH_TOL = 1e-3
 SERVE_SEED = 6
 SERVE_BATCHES = 8
 P50_REPEATS = 11
@@ -644,17 +668,31 @@ def phase_dim512(cli, block_chol, woodbury):
     # (tol 1 forces the warm one); outside the counted run
     state = res.model.state
     eigh_ms = {
-        "cold": cuda_ms(lambda: torch.linalg.eigh(state.item_gramian)),
+        "cold": cuda_ms(lambda: woodbury.sym_eigh(state.item_gramian)),
         "warm": cuda_ms(lambda: woodbury.refresh_eigh(
             state.item_gramian, state.eig_qu, 1.0))}
-    say("dim512", f"eigh of the [512, 512] Gramian: cold (torch.linalg.eigh)"
+    orth = basis_orth(state, "dim512")
+    say("dim512", f"eigh of the [512, 512] Gramian: cold (woodbury.sym_eigh)"
         f" {eigh_ms['cold']:.3f} ms, warm refresh (4 x [128, 128] blocks) "
-        f"{eigh_ms['warm']:.3f} ms")
+        f"{eigh_ms['warm']:.3f} ms; the carried bases after the last epoch"
+        f": ||Q^T Q - I||_F {orth} (tol {BASIS_ORTH_TOL:g})")
     block_chol.reset_launches()
     serve = phase_serve(res.model, 1, "dim512")
     return dict(res=res, launches=launches, shapes=shapes, paths=paths,
                 serve=serve, serve_launches=block_chol.total_launches(),
-                eigh_ms=eigh_ms, peak_bytes=peak)
+                eigh_ms=eigh_ms, basis_orth=orth, peak_bytes=peak)
+
+
+def basis_orth(state, tag: str) -> dict:
+    """||Q^T Q - I||_F (float64) of the user- and item-side eigenbases a
+    model carries from epoch to epoch, each within BASIS_ORTH_TOL."""
+    from safer2_recommender_tpu_torch.probes import eigh
+
+    out = {side: eigh.orthogonality(q) for side, q in
+           (("user", state.eig_qu), ("item", state.eig_qv))}
+    check(all(v <= BASIS_ORTH_TOL for v in out.values()),
+          f"{tag}: a carried eigenbasis is not orthogonal: {out}")
+    return out
 
 
 def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
@@ -692,14 +730,18 @@ def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
     check(sum(launches.values()) > 0, "synth50k: no kernel launch")
     check(len(shapes) == sum(launches.values()),
           "synth50k: launches do not match calls")
+    orth = basis_orth(model.state, "synth50k")
     say("synth50k", f"{ds.num_users} users x {ds.num_items} items, "
         f"{ds.nnz} tuples, dim {cfg.dim}, {epochs} epochs: first epoch "
         f"{epoch_ms[0]} ms, then {epoch_ms[1:]} ms (synchronized host "
         f"clock); data + bucketing {setup_s:.1f} s; mean dual weight "
         f"{weights}; solve paths (padded rows; refreshes) {paths}; kernel "
-        f"launches by r {launches}; peak device memory {peak} B")
+        f"launches by r {launches}; peak device memory {peak} B; the "
+        f"carried bases after the last epoch: ||Q^T Q - I||_F {orth} (tol "
+        f"{BASIS_ORTH_TOL:g})")
     return dict(epoch_ms=epoch_ms, paths=paths, launches=launches,
-                peak_bytes=peak, shapes=shapes, model=model)
+                peak_bytes=peak, shapes=shapes, model=model,
+                basis_orth=orth)
 
 
 def phase_models(cli, block_chol, ckpt_root):
@@ -2257,9 +2299,12 @@ def phase_ops(device) -> None:
         say("ops", "eigh " + line)
     bad = [row["name"] for row in eigh.eigh_rows(res)
            if not eigh.eigh_ok(row)]
-    check(not bad, f"ops: eigh rows not finite, or reconstructions over "
-          f"{eigh.RECON_TOL} (float64 route) or {eigh.ROUTE_TOL} (float32 "
-          f"route): {bad}")
+    bad += [f"route [{row['batch']}, {row['d']}]" for row in res["route"]
+            if not eigh.route_ok(row)]
+    check(not bad, f"ops: eigh rows not finite, or the port's route "
+          f"(woodbury.sym_eigh) or the float64 route reconstructing over "
+          f"{eigh.RECON_TOL}, or the port's orthogonal only over "
+          f"{eigh.ORTH_TOL}: {bad}")
     shared = res["shared"]
     check(shared["newton_schulz"]["finite"]
           and all(map(math.isfinite, shared["drift"].values()))
@@ -2272,6 +2317,30 @@ def phase_ops(device) -> None:
     bad = [(row["d"], row["name"], row["precision"]) for row in rows
            if not max(row["errors"]) <= row["tol"]]
     check(not bad, f"ops: dependent products off the float64 chain: {bad}")
+
+
+def phase_oracle(block_chol, device) -> dict:
+    """[oracle]: every model's epoch on the card against the float64
+    oracles (probes/oracle.py) at dims 8, 128 and 512, each held to
+    rtol 2e-4, atol 2e-5 x max(1, dim / 8) (oracle.row_ok), at 512 to
+    oracle.SHARP_ABS_512 too, with the raw float32 eigh's run its
+    control, every solve route of the model's epoch taking rows at 512;
+    the warm refresh's epochs at 256 are readings."""
+    from safer2_recommender_tpu_torch.probes import oracle
+
+    block_chol.reset_launches()
+    rows = oracle.run(device)
+    launches = dict(block_chol.LAUNCHES)
+    for row in rows:
+        say("oracle", oracle.describe(row))
+    bad = [f"{row['key']} dim {row['dim']}" for row in rows
+           if not oracle.row_ok(row)]
+    check(not bad, f"oracle: epochs off the float64 oracle or past the "
+          f"dim-512 limit, a raw float32 control within it, a refresh "
+          f"branch not the expected one, or a solve route not taken: {bad}")
+    check(sum(launches.values()) > 0, f"oracle: no chol_inverse launch: "
+          f"{launches}")
+    return dict(launches=launches, rows=rows)
 
 
 def main() -> int:
@@ -2473,6 +2542,9 @@ def run_phases(device, ckpt_root: str) -> None:
     t0 = time.perf_counter()
     phase_ops(device)
     say("ops", f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oracle_res = phase_oracle(block_chol, device)
+    say("oracle", f"phase {time.perf_counter() - t0:.1f} s")
 
     bdot.reset_launches()
     probe = bdot_probe.run(device=device)
@@ -2601,7 +2673,8 @@ def run_phases(device, ckpt_root: str) -> None:
                      + sum(eval_msd["launches"].values())
                      + sum(serve_msd["launches"].values())
                      + sum(bench["launches"].values())
-                     + sum(classes["launches"].values())),
+                     + sum(classes["launches"].values())
+                     + sum(oracle_res["launches"].values())),
         "max_abs_err": max([v["max_abs_err"] for v in by_r.values()]
                            + [v["max_abs_err"] for v in main_t.values()]
                            + [served_err]),
@@ -2664,7 +2737,8 @@ def run_phases(device, ckpt_root: str) -> None:
             "eval_msd": eval_msd["launches"],
             "serve_msd": serve_msd["launches"],
             "bench": bench["launches"],
-            "classes": classes["launches"]},
+            "classes": classes["launches"],
+            "oracle": oracle_res["launches"]},
         "by_r": {str(r): v for r, v in by_r.items()},
         "serve_users_per_s": users_per_s,
         "ml1m_dim32_epoch_ms": res.epoch_ms,
@@ -2691,6 +2765,7 @@ def run_phases(device, ckpt_root: str) -> None:
         "entry": entry,
         "classes": classes,
         "roofline": roofline,
+        "oracle": oracle_res,
     }, {
         "name": "bdot",
         "route": "cuda",

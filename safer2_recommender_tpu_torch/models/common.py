@@ -366,7 +366,7 @@ def block_eigh(gram: torch.Tensor, bs: int
     nb = gram.shape[0] // bs
     idx = torch.arange(nb, device=gram.device)
     diag = gram.reshape(nb, bs, nb, bs)[idx, :, idx, :]      # [nb, bs, bs]
-    lam, q = torch.linalg.eigh(diag)
+    lam, q = woodbury.sym_eigh(diag)
     return lam.clamp(min=0.0), q
 
 

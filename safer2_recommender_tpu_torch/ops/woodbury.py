@@ -87,6 +87,23 @@ class SolveParams(NamedTuple):
     wide: Optional[WideHist] = None
 
 
+def sym_eigh(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lam ascending, Q) of the symmetric float32 [..., d, d] ``x``, both
+    float32: the one eigendecomposition of the package (``maybe_eigh``,
+    both branches of ``refresh_eigh``, ``models/common.py::block_eigh``).
+
+    cuSOLVER decomposes float32 at 32 <= d <= 512 by Jacobi (``syevj``),
+    whose basis reconstructs a 512 Gramian only to ~4e-4 and is
+    orthogonal only to ~5e-3 (||Q^T Q - I||_F), where the JAX package's
+    tests hold a cold eigh to 1e-5. So this runs in float64 and rounds
+    the result (~1e-7 and ~1e-6 at every epoch shape on an H100), which
+    is also the faster route there at d >= 64 (``probes/eigh.py`` part
+    ``route``; PERF.md). The same route on every device; no process-wide
+    setting."""
+    lam, q = torch.linalg.eigh(x.to(torch.float64))
+    return lam.to(torch.float32), q.to(torch.float32)
+
+
 # Warm-started refresh: block size of the batched diagonal-block eighs
 # and the minimum dim at which the refresh pays.
 _REFRESH_BLOCK = 128
@@ -123,13 +140,13 @@ def refresh_eigh(gram: torch.Tensor, q_prev: torch.Tensor,
         torch.square(total) - torch.sum(torch.square(diag)), min=0.0))
     if bool(coupling <= rel_tol * total):
         SOLVE_PATHS["refresh_warm"] += 1
-        lam_b, qq = torch.linalg.eigh(diag)                   # [k, bs] x2
+        lam_b, qq = sym_eigh(diag)                            # [k, bs] x2
         # q <- q_prev @ blockdiag(qq): batched [d, bs] x [bs, bs]
         qp = q_prev.reshape(d, k, bs).permute(1, 0, 2)        # [k, d, bs]
         qn = torch.bmm(qp, qq)                                # [k, d, bs]
         return qn.permute(1, 0, 2).reshape(d, d), lam_b.reshape(-1)
     SOLVE_PATHS["refresh_cold"] += 1
-    lam, q = torch.linalg.eigh(gram)
+    lam, q = sym_eigh(gram)
     return q, lam
 
 
@@ -148,7 +165,7 @@ def maybe_eigh(gram: torch.Tensor, dim: int, *, use_cg: bool,
             and dim >= _REFRESH_MIN_DIM and dim % _REFRESH_BLOCK == 0):
         q, lam = refresh_eigh(gram, q_prev, refresh_tol)
     else:
-        lam, q = torch.linalg.eigh(gram)
+        lam, q = sym_eigh(gram)
     return q, torch.clamp(lam, min=0.0)
 
 

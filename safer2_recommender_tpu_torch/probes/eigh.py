@@ -4,7 +4,7 @@ warm-started refresh (the counterpart of the JAX package's
 ``scripts/probe_eigh.py`` and ``scripts/probe_eigh2.py``, which asked the
 same of XLA on a TPU).
 
-    python -m safer2_recommender_tpu_torch.probes.eigh [--part shared|sizes|all]
+    python -m safer2_recommender_tpu_torch.probes.eigh [--part shared|sizes|route|all]
 
 Inputs are the scripts', drawn from ``np.random.default_rng(0)`` in
 their order and at their sizes. ``shared`` (``probe_eigh.py``): the
@@ -29,21 +29,31 @@ order:
 at each (batch, d) of ``SIZES``, per call beside one matrix of the batch
 alone, and the error of each.
 
+``route``: the port's own eigendecomposition, ``woodbury.sym_eigh``, at
+every shape the epochs give it (``ROUTE_SHAPES``: the cold 128, 256 and
+512, the warm refresh's [d / 128, 128, 128] blocks, ``block_eigh``'s
+[8, 64, 64] and [16, 32, 32] at dim 512 and [2, 32, 32] at dim 64), on
+random Gramians drawn as ``sizes`` draws them (seed 1), beside each
+candidate route of ``CANDIDATES``: float32 ``torch.linalg.eigh``,
+float64 rounded, float32 by ``syevd`` (the matrix padded to 513 with a
+diagonal above its spectrum, where torch leaves Jacobi; no process-wide
+setting) and float32 polished by one float64 Rayleigh-Ritz step.
+
 eigh reads the host after each call (torch checks cuSOLVER's ``info``),
 so it is timed per call by CUDA events after a warm-up, that read
 included (the host reads of one call are counted), and never from a
 graph. Each eigh row names the device kernels that one call ran (the
 cuSOLVER route) and its bound: 2 d^2 x 4 bytes against 9 d^3 FLOPs a
 matrix (the symmetric QR algorithm with vectors, Golub and Van Loan) at
-67 TFLOP/s. Beside the float32 call, which the port's Woodbury path
-makes, each row decomposes the same input in float64 on the card and
-rounds the result to float32 (its ms and error): cuSOLVER's float32
-route for 32 <= d <= 512 is Jacobi (``syevj``), whose eigenvectors are
-orthogonal only to ~1e-3 at d = 512 (``orth``, ||Q^T Q - I||_F). Every
-product runs at ``"highest"`` (float32, no TF32). A reading that is not
-finite fails, as does a float64-route reconstruction above ``RECON_TOL``
-or a float32 one above ``ROUTE_TOL``. A machine without CUDA is an
-error.
+67 TFLOP/s. Each row decomposes its input three ways: float32
+``torch.linalg.eigh`` (cuSOLVER's float32 route for 32 <= d <= 512 is
+Jacobi, ``syevj``, whose eigenvectors are orthogonal only to ~1e-3 at
+d = 512: ``orth``, ||Q^T Q - I||_F), float64 on the card rounded to
+float32, and the port's ``woodbury.sym_eigh``. Every product runs at
+``"highest"`` (float32, no TF32). A reading that is not finite fails,
+as does a reconstruction of the float64 route or of the port's above
+``RECON_TOL``, or the port's orthogonality above ``ORTH_TOL``; the
+float32 call is a reading. A machine without CUDA is an error.
 """
 
 from __future__ import annotations
@@ -60,19 +70,25 @@ from safer2_recommender_tpu_torch.config import Config
 from safer2_recommender_tpu_torch.ops import woodbury
 from safer2_recommender_tpu_torch.utils.device import matmul_precision
 
-PARTS = ("shared", "sizes")
+PARTS = ("shared", "sizes", "route")
 D = 512
 GRAM_ROWS = 40_000
 NS_ITERS = 30
 SIZES = ((1, 512), (2, 512), (1, 256), (2, 256), (4, 256), (1, 128),
          (4, 128), (8, 128), (8, 64), (16, 64), (16, 32))
+# the shapes the epochs decompose: (batch, d), batch 1 a single matrix
+ROUTE_SHAPES = ((1, 128), (1, 256), (1, 512), (2, 128), (4, 128),
+                (8, 64), (16, 32), (2, 32))
+# calls timed per candidate route (the padded syevd is slow at small d)
+ROUTE_ITERS = 5
 # Reconstruction error ||Q diag(w) Q^T - G|| / ||G|| of an exact float32
 # eigendecomposition (LAPACK's on the CPU, the card's float64 route
-# rounded), and the bound the JAX package's tests hold an eigenbasis its
-# Woodbury path runs on to (tests/test_torch_woodbury.py, the warm path):
-# the card's float32 route lies between the two (PERF.md)
+# rounded), the JAX package's bound on a cold eigh
+# (tests/test_torch_woodbury.py), and the orthogonality ||Q^T Q - I||_F
+# the port's route is held to (float64 rounded sits near 1e-6; the
+# card's float32 Jacobi read 2.1e-3 at 512, PERF.md)
 RECON_TOL = 1e-5
-ROUTE_TOL = 5e-3
+ORTH_TOL = 1e-4
 
 
 def shared_inputs(d: int = D, rows: int = GRAM_ROWS
@@ -166,28 +182,70 @@ def orthogonality(q: torch.Tensor) -> float:
     return float(torch.linalg.norm(q.mT @ q - eye, dim=(-2, -1)).max())
 
 
-def _eigh_row(name: str, x: torch.Tensor, single_ms=None) -> dict:
-    """Time, host reads, route, bound, errors and orthogonality of eigh
-    of ``x`` in float32, and of the float64 route rounded."""
-    fn = lambda: torch.linalg.eigh(x)  # noqa: E731
-    ms = probes.cuda_ms(fn)
-    w, q = fn()
+def _syevd_f32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 eigh by cuSOLVER's ``syevd``: ``x`` padded to 513 with a
+    diagonal above its spectrum (torch takes Jacobi at 32 <= d <= 512 in
+    float32), its d lowest pairs kept."""
+    d, n = x.shape[-1], max(x.shape[-1] + 1, 513)
+    top = torch.linalg.norm(x, dim=(-2, -1)) * 2 + 1
+    pad = torch.zeros(x.shape[:-2] + (n, n), dtype=x.dtype, device=x.device)
+    pad[..., :d, :d] = x
+    idx = torch.arange(d, n, device=x.device)
+    pad[..., idx, idx] = top[..., None]
+    w, q = torch.linalg.eigh(pad)
+    return w[..., :d], q[..., :d, :d].contiguous()
+
+
+def _rayleigh_ritz(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 eigh, then one Rayleigh-Ritz step in float64 on its basis
+    made orthonormal: the eigendecomposition of Q^T X Q, rotated back."""
+    q = torch.linalg.qr(torch.linalg.eigh(x)[1].double()).Q
+    with matmul_precision("highest"):
+        b = q.mT @ x.double() @ q
+        w, v = torch.linalg.eigh(0.5 * (b + b.mT))
+        q = q @ v
+    return w.float(), q.float()
+
+
+def _f64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    w, q = torch.linalg.eigh(x.double())
+    return w.float(), q.float()
+
+
+CANDIDATES = {"float32": torch.linalg.eigh, "float64": _f64,
+              "float32 syevd": _syevd_f32,
+              "float32 + Rayleigh-Ritz": _rayleigh_ritz}
+
+
+def _readings(fn, x: torch.Tensor, iters: int = 20) -> dict:
+    """ms per call (mean of ``iters``), reconstruction error and
+    orthogonality of ``fn(x)``, whether its eigenvalues ascend and
+    whether its result is finite."""
+    ms = probes.cuda_ms(lambda: fn(x), iters=iters)
+    w, q = fn(x)
     err = reconstruction_error(w, q, x).reshape(-1)
-    x64 = x.double()
-    f64_ms = probes.cuda_ms(lambda: torch.linalg.eigh(x64))
-    w64, q64 = torch.linalg.eigh(x64)
-    err64 = reconstruction_error(w64.float(), q64.float(), x).reshape(-1)
+    return dict(ms=ms, error=float(err.max()), orth=orthogonality(q),
+                ascending=bool((w[..., 1:] >= w[..., :-1]).all()),
+                finite=bool(torch.isfinite(w).all() and torch.isfinite(q).all()
+                            and torch.isfinite(err).all()))
+
+
+def _eigh_row(name: str, x: torch.Tensor, single_ms=None) -> dict:
+    """Time, host reads, kernels and bound of float32 eigh of ``x``, and
+    the ms, errors and orthogonality of it, of the float64 route rounded
+    and of the port's ``woodbury.sym_eigh``."""
+    fn = lambda: torch.linalg.eigh(x)  # noqa: E731
+    f32, f64 = _readings(torch.linalg.eigh, x), _readings(_f64, x)
+    route = _readings(woodbury.sym_eigh, x)
     batch = 1 if x.dim() == 2 else x.shape[0]
     d = x.shape[-1]
-    row = dict(name=name, batch=batch, d=d, ms=ms,
+    row = dict(name=name, batch=batch, d=d, ms=f32["ms"],
                host_reads=probes.host_reads(fn),
-               kernels=probes.kernel_names(fn), error=float(err.max()),
-               orth=orthogonality(q), f64_ms=f64_ms,
-               error_f64=float(err64.max()), orth_f64=orthogonality(
-                   q64.float()),
-               finite=bool(torch.isfinite(w).all() and torch.isfinite(q).all()
-                           and torch.isfinite(err).all()
-                           and torch.isfinite(err64).all()),
+               kernels=probes.kernel_names(fn), error=f32["error"],
+               orth=f32["orth"], f64_ms=f64["ms"], error_f64=f64["error"],
+               orth_f64=f64["orth"], route_ms=route["ms"],
+               error_route=route["error"], orth_route=route["orth"],
+               finite=f32["finite"] and f64["finite"] and route["finite"],
                **eigh_bound(batch, d))
     if single_ms is not None:
         row["single_ms"] = single_ms
@@ -195,10 +253,11 @@ def _eigh_row(name: str, x: torch.Tensor, single_ms=None) -> dict:
 
 
 def eigh_ok(row: dict) -> bool:
-    """The row's checks: finite, the float64 route within ``RECON_TOL``
-    and the float32 route within ``ROUTE_TOL``."""
+    """The row's checks: finite; the float64 route and the port's
+    within ``RECON_TOL``, the port's orthogonal within ``ORTH_TOL``."""
     return (row["finite"] and row["error_f64"] <= RECON_TOL
-            and row["error"] <= ROUTE_TOL)
+            and row["error_route"] <= RECON_TOL
+            and row["orth_route"] <= ORTH_TOL)
 
 
 def _shared(device) -> dict:
@@ -216,14 +275,14 @@ def _shared(device) -> dict:
                   / 1e12, finite=bool(torch.isfinite(ns).all()),
                   **probes.bound(NS_ITERS * 2 * 4 * D * D, flop))
 
-    w, q = torch.linalg.eigh(g)
+    w, q = woodbury.sym_eigh(g)
     g2 = drifted(g, torch.from_numpy(drift_host).to(device))
     drift = drift_readings(q, g2)
     tol = Config().eig_refresh_tol
     branch, q2, lam2 = refresh(g2, q, tol)
     times = probes.in_turns({
         "refresh_eigh": lambda: refresh(g2, q, tol),
-        "cold eigh": lambda: torch.linalg.eigh(g2)})
+        "cold eigh": lambda: woodbury.sym_eigh(g2)})
     current = dict(branch=branch, tol=tol, ms=times["refresh_eigh"],
                    cold_ms=times["cold eigh"],
                    error=float(reconstruction_error(lam2, q2, g2)))
@@ -243,6 +302,37 @@ def _sizes(device) -> List[dict]:
     return rows
 
 
+def route_inputs() -> List[Tuple[int, int, np.ndarray]]:
+    """Random Gramians at ``ROUTE_SHAPES``, drawn as ``sizes_inputs``
+    draws its own, from ``np.random.default_rng(1)``."""
+    rng = np.random.default_rng(1)
+    out = []
+    for batch, d in ROUTE_SHAPES:
+        a = rng.normal(size=(batch, d, d)).astype(np.float32)
+        g = np.einsum("nab,ncb->nac", a, a) / d
+        out.append((batch, d, g if batch > 1 else g[0]))
+    return out
+
+
+def route_ok(row: dict) -> bool:
+    """The port's route at one shape: finite, ascending, within
+    ``RECON_TOL`` and ``ORTH_TOL``."""
+    r = row["route"]
+    return (r["finite"] and r["ascending"] and r["error"] <= RECON_TOL
+            and r["orth"] <= ORTH_TOL)
+
+
+def _route(device) -> List[dict]:
+    rows = []
+    for batch, d, g in route_inputs():
+        x = torch.from_numpy(g).to(device)
+        rows.append(dict(batch=batch, d=d,
+                         route=_readings(woodbury.sym_eigh, x),
+                         candidates={k: _readings(fn, x, ROUTE_ITERS)
+                                     for k, fn in CANDIDATES.items()}))
+    return rows
+
+
 def run(device="cuda", parts=PARTS) -> dict:
     """Measure ``parts`` on ``device`` (a CUDA device): {"shared":
     {...}, "sizes": [rows]} for the parts asked."""
@@ -255,6 +345,8 @@ def run(device="cuda", parts=PARTS) -> dict:
         out["shared"] = _shared(device)
     if "sizes" in parts:
         out["sizes"] = _sizes(device)
+    if "route" in parts:
+        out["route"] = _route(device)
     return out
 
 
@@ -274,11 +366,25 @@ def describe_eigh(row: dict) -> str:
                     if ratio > 1 else ""))
     return (line + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']}"
             f" ({100 * row['bound_ms'] / row['ms']:.2f}%); reconstruction "
-            f"rel err {row['error']:.2e} (tol {ROUTE_TOL:g}), orth "
-            f"{row['orth']:.2e}; float64 route {row['f64_ms']:.4f} ms, rel "
-            f"err {row['error_f64']:.2e} (tol {RECON_TOL:g}), orth "
-            f"{row['orth_f64']:.2e}; kernels: "
+            f"rel err {row['error']:.2e}, orth {row['orth']:.2e}; float64 "
+            f"route {row['f64_ms']:.4f} ms, rel err {row['error_f64']:.2e} "
+            f"(tol {RECON_TOL:g}), orth {row['orth_f64']:.2e}; the port's "
+            f"sym_eigh {row['route_ms']:.4f} ms, rel err "
+            f"{row['error_route']:.2e} (tol {RECON_TOL:g}), orth "
+            f"{row['orth_route']:.2e} (tol {ORTH_TOL:g}); kernels: "
             + probes.describe_kernels(row["kernels"], 3))
+
+
+def describe_route(row: dict) -> str:
+    """One shape of the ``route`` part: the port's route, then each
+    candidate, ms / rel err / orth."""
+    def one(r):
+        return (f"{r['ms']:.4f} ms, rel err {r['error']:.2e}, orth "
+                f"{r['orth']:.2e}" + ("" if r["finite"] else ", NOT FINITE"))
+
+    return (f"route [{row['batch']:2d},{row['d']:3d}]: sym_eigh "
+            + one(row["route"]) + f" (tol {RECON_TOL:g}, {ORTH_TOL:g}); "
+            + "; ".join(f"{k} {one(r)}" for k, r in row["candidates"].items()))
 
 
 def describe(res: dict) -> List[str]:
@@ -298,6 +404,7 @@ def describe(res: dict) -> List[str]:
             f"per call beside cold eigh {cur['cold_ms']:.4f} ms; recon rel "
             f"err {cur['error']:.2e}"]
     lines += [describe_eigh(row) for row in res.get("sizes", [])]
+    lines += [describe_route(row) for row in res.get("route", [])]
     return lines
 
 
@@ -313,7 +420,8 @@ def main(argv=None) -> int:
     res = run(parts=PARTS if args.part == "all" else (args.part,))
     for line in describe(res):
         print(line, flush=True)
-    return 0 if all(map(eigh_ok, eigh_rows(res))) else 1
+    return 0 if (all(map(eigh_ok, eigh_rows(res)))
+                 and all(map(route_ok, res.get("route", [])))) else 1
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ def test_port_imports_no_jax():
                 "probes.scale", "probes.eval_scale", "probes.serving_scale",
                 "probes.multichip", "dryrun", "bench", "probes.roofline",
                 "probes.quantile", "probes.gather", "probes.eigh",
-                "probes.seqdot"):
+                "probes.seqdot", "probes.oracle", "probes.epoch_ab"):
         assert f"safer2_recommender_tpu_torch.{mod}" in names.split(","), mod
 
 

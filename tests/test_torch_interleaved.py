@@ -21,6 +21,7 @@ from safer2_recommender_tpu_torch import (CheckpointManager, Config, Dataset,
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.ops import assemble as tasm
 from safer2_recommender_tpu_torch.ops import block_chol, quantile, smoothing
+from safer2_recommender_tpu_torch.probes import oracle
 
 # reference *_test.cc fixtures (tests/test_models_ml1m.py:34-123)
 SAFER_CFG = dict(uobs_weight=0.004, l2_reg=0.004, stdev=0.1, alpha=0.3,
@@ -130,36 +131,15 @@ def test_interleaved_fold_in_matches_jax(small, name):
 # --------------------------------------------------------------------------
 
 
-def _adj(ds):
-    by_u, by_i = {}, {}
-    for u, i in zip(ds.user_ids, ds.item_ids):
-        by_u.setdefault(int(u), []).append(int(i))
-        by_i.setdefault(int(i), []).append(int(u))
-    return by_u, by_i
-
-
 def _init_tables(model, dd):
     out = model.export_state(dd)
     return (out["user_emb"].astype(np.float64),
             out["item_emb"].astype(np.float64))
 
 
-def _block_delta_step(x, vh, g, S, ch, cg, reg):
-    """One reference block delta solve (ialspp.h:85-145 /
-    safer2pp.h:97-159); ``ch`` a vector carries per-slot weights."""
-    pred = vh @ x
-    vloc = vh[:, S]
-    if np.ndim(ch) == 0:
-        a = ch * (vloc.T @ vloc)
-        r_h = ch * (vloc.T @ (pred - 1.0))
-    else:
-        a = (vloc * ch[:, None]).T @ vloc
-        r_h = (vloc * ch[:, None]).T @ (pred - 1.0)
-    a = a + cg * g[S, S] + reg * np.eye(S.stop - S.start)
-    rhs = r_h + cg * (g[S, :] @ x) + reg * x[S]
-    out = x.copy()
-    out[S] = x[S] - np.linalg.solve(a, rhs)
-    return out
+def _adjacency(ds):
+    return oracle.Adjacency(ds.user_ids, ds.item_ids, ds.num_users,
+                            ds.num_items)
 
 
 def test_ialspp_interleaved_epoch_matches_numpy_oracle(small):
@@ -171,38 +151,19 @@ def test_ialspp_interleaved_epoch_matches_numpy_oracle(small):
                  block_interleaved=True, **IALS_CFG)
     m = get_model("ialspp", cfg, ds.num_users, ds.num_items, device="cpu")
     u1, v1 = _init_tables(m, dd)
-    by_u, by_i = _adj(ds)
-
-    def reg(n_hist, n_choices):
-        return cfg.l2_reg * (n_hist + cfg.uobs_weight * n_choices)
-
-    for k in range(0, cfg.dim, cfg.block_size):
-        S = slice(k, k + cfg.block_size)
-        g = v1.T @ v1                      # live: earlier blocks applied
-        nxt = u1.copy()
-        for r, hist in by_u.items():
-            nxt[r] = _block_delta_step(u1[r], v1[hist], g, S, 1.0,
-                                       cfg.uobs_weight,
-                                       reg(len(hist), ds.num_items))
-        u1 = nxt
-        g = u1.T @ u1                      # live: includes this U block
-        nxt = v1.copy()
-        for r, hist in by_i.items():
-            nxt[r] = _block_delta_step(v1[r], u1[hist], g, S, 1.0,
-                                       cfg.uobs_weight,
-                                       reg(len(hist), ds.num_users))
-        v1 = nxt
+    adj = _adjacency(ds)
+    want = oracle.ialspp_interleaved(adj, cfg, u1, v1)
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=2e-5)
     # the stored loss is the END-of-epoch one, /|H|, no halving
-    g = v1.T @ v1
-    for u in list(by_u)[:10]:
-        p = v1[by_u[u]] @ u1[u]
-        want = np.mean((p - 1.0) ** 2) + cfg.uobs_weight * u1[u] @ g @ u1[u]
-        assert got["user_loss"][u] == pytest.approx(want, rel=2e-4, abs=2e-5)
+    for u in list(adj.by_u)[:10]:
+        assert got["user_loss"][u] == pytest.approx(want["user_loss"][u],
+                                                     rel=2e-4, abs=2e-5)
 
 
 def test_safer2pp_interleaved_epoch_matches_numpy_oracle(small):
@@ -211,8 +172,6 @@ def test_safer2pp_interleaved_epoch_matches_numpy_oracle(small):
     # weights (safer2pp.h:161-216, :532-544), per block in turn
     # (safer2pp.h:303-319); xi_iterations=0 keeps xi at its epoch-0 warm
     # start (the mean loss)
-    from math import erf, sqrt
-
     _, _, ds, dd = small
     cfg = Config(dim=8, block_size=4, uobs_weight=0.004, l2_reg=0.004,
                  alpha=0.3, bandwidth=0.15, xi_iterations=0,
@@ -221,60 +180,23 @@ def test_safer2pp_interleaved_epoch_matches_numpy_oracle(small):
     m = get_model("safer2pp", cfg, ds.num_users, ds.num_items, device="cpu")
     m.initialize(dd)
     u1, v1 = _init_tables(m, dd)
-    by_u, by_i = _adj(ds)
-    nu, ni = ds.num_users, ds.num_items
-    hist_size = np.zeros(nu)
-    for u, hist in by_u.items():
-        hist_size[u] = len(hist)
-    stat = np.zeros(ni)
-    for i, users in by_i.items():
-        stat[i] = sum(1.0 / hist_size[u] for u in users)
-    item_reg = cfg.l2_reg * (stat + cfg.alpha * cfg.uobs_weight * nu)
-    u_reg = cfg.l2_reg * (1.0 + cfg.uobs_weight * ni)
-
-    def losses(ue, ve):
-        g = ve.T @ ve
-        out = np.zeros(nu)
-        for u, hist in by_u.items():
-            p = ve[hist] @ ue[u]
-            out[u] = 0.5 * (np.mean((p - 1.0) ** 2)
-                            + cfg.uobs_weight * ue[u] @ g @ ue[u])
-        return out
-
-    loss0 = losses(u1, v1)
-    xi = loss0.mean()
-    dual = np.array([1.0 - 0.5 * (1.0 + erf((-(x - xi) / cfg.bandwidth)
-                                            / sqrt(2.0))) for x in loss0])
-    norm_dual = np.where(hist_size > 0, dual / np.maximum(hist_size, 1.0),
-                         0.0)
-    for k in range(0, cfg.dim, cfg.block_size):
-        S = slice(k, k + cfg.block_size)
-        g = v1.T @ v1
-        nxt = u1.copy()
-        for r, hist in by_u.items():
-            w = dual[r]
-            nxt[r] = _block_delta_step(u1[r], v1[hist], g, S, w / len(hist),
-                                       cfg.uobs_weight * w, u_reg)
-        u1 = nxt
-        gw = u1.T @ (u1 * dual[:, None])
-        nxt = v1.copy()
-        for r, hist in by_i.items():
-            nxt[r] = _block_delta_step(v1[r], u1[hist], gw, S,
-                                       norm_dual[hist], cfg.uobs_weight,
-                                       item_reg[r])
-        v1 = nxt
+    adj = _adjacency(ds)
+    want = oracle.safer2pp_interleaved(adj, cfg, u1, v1)
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["dual_weight"], dual, rtol=1e-4,
-                               atol=1e-5)
-    np.testing.assert_allclose(got["xi"], xi, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["dual_weight"], want["dual_weight"],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["xi"], want["xi"], rtol=1e-4, atol=1e-6)
     # the END-of-epoch loss, from the carried predictions
-    present = hist_size > 0
+    present = adj.present
     np.testing.assert_allclose(got["user_loss"][present],
-                               losses(u1, v1)[present], rtol=2e-4, atol=2e-5)
+                               want["user_loss"][present], rtol=2e-4,
+                               atol=2e-5)
 
 
 # --------------------------------------------------------------------------

@@ -11,7 +11,6 @@ everywhere, unless stated: rtol 2e-4, atol 2e-5 * max(1, dim / 8), the
 float64 oracles' own (tests/test_numpy_oracle.py)."""
 
 import logging
-from math import erf, sqrt
 
 import numpy as np
 import pytest
@@ -24,6 +23,7 @@ from safer2_recommender_tpu_torch import (MODEL_REGISTRY, Config, Dataset,
                                           interop)
 from safer2_recommender_tpu_torch.ops import assemble as tasm
 from safer2_recommender_tpu_torch.ops import woodbury as twb
+from safer2_recommender_tpu_torch.probes import oracle
 from safer2_recommender_tpu_torch.utils.device import DeviceUnavailable
 
 NEW_MODELS = ("ials", "erm_mf", "cvar_mf", "ialspp", "safer2pp")
@@ -248,16 +248,9 @@ def test_fold_in_at_dim_128_collapses_to_one_exact_solve(dense, name):
 
 
 # --------------------------------------------------------------------------
-# float64 oracles (tests/test_numpy_oracle.py) against the port
+# float64 oracles (tests/test_numpy_oracle.py; probes/oracle.py) against
+# the port
 # --------------------------------------------------------------------------
-
-
-def _adj(ds):
-    by_u, by_i = {}, {}
-    for u, i in zip(ds.user_ids, ds.item_ids):
-        by_u.setdefault(int(u), []).append(int(i))
-        by_i.setdefault(int(i), []).append(int(u))
-    return by_u, by_i
 
 
 def _init_tables(model, dd):
@@ -266,75 +259,33 @@ def _init_tables(model, dd):
             out["item_emb"].astype(np.float64))
 
 
-class _SaferOracle:
-    """The SAFER family's shared per-row math in float64."""
-
-    def __init__(self, ds, cfg):
-        self.cfg, self.nu, self.ni = cfg, ds.num_users, ds.num_items
-        self.by_u, self.by_i = _adj(ds)
-        self.hist_size = np.zeros(self.nu)
-        for u, hist in self.by_u.items():
-            self.hist_size[u] = len(hist)
-        self.present = self.hist_size > 0
-        stat = np.zeros(self.ni)
-        for i, users in self.by_i.items():
-            stat[i] = sum(1.0 / self.hist_size[u] for u in users)
-        self.item_reg = cfg.l2_reg * (stat + cfg.alpha * cfg.uobs_weight
-                                      * self.nu)
-        self.u_reg = cfg.l2_reg * (1.0 + cfg.uobs_weight * self.ni)
-
-    def losses(self, ue, ve):
-        g = ve.T @ ve
-        out = np.zeros(self.nu)
-        for u, hist in self.by_u.items():
-            p = ve[hist] @ ue[u]
-            out[u] = 0.5 * (np.mean((p - 1.0) ** 2)
-                            + self.cfg.uobs_weight * ue[u] @ g @ ue[u])
-        return out
-
-    def dual_of(self, loss, xi):
-        # the gaussian z-step over ALL ids (safer2pp.h:839-862)
-        return np.array([1.0 - 0.5 * (1.0 + erf(
-            (-(x - xi) / self.cfg.bandwidth) / sqrt(2.0))) for x in loss])
+def _adjacency(ds):
+    return oracle.Adjacency(ds.user_ids, ds.item_ids, ds.num_users,
+                            ds.num_items)
 
 
 @pytest.mark.parametrize("which", ["small-8", "dense-128"])
 def test_ials_epoch_matches_numpy_oracle(small, dense, which):
     # dim 8 runs the direct path; dim 128 the Woodbury exact solves and
-    # the rotated direct assembly
+    # the rotated direct assembly (reference ials.h:317-365)
     _, _, ds, dd = small if which == "small-8" else dense
     dim = int(which.split("-")[1])
     cfg = Config(dim=dim, compute_dtype="f32", seed=5, **IALS_CFG)
     m = get_model("ials", cfg, ds.num_users, ds.num_items, device="cpu")
     u0, v0 = _init_tables(m, dd)
-    by_u, by_i = _adj(ds)
-
-    def sweep(table_self, table_other, adj, n_choices):
-        # reference ials.h:317-365
-        g = table_other.T @ table_other
-        out = table_self.copy()
-        for r, hist in adj.items():
-            vh = table_other[hist]
-            reg = cfg.l2_reg * (len(hist) + cfg.uobs_weight * n_choices)
-            a = cfg.uobs_weight * g + vh.T @ vh + reg * np.eye(dim)
-            out[r] = np.linalg.solve(a, vh.sum(0))
-        return out
-
-    u1 = sweep(u0, v0, by_u, ds.num_items)
-    v1 = sweep(v0, u1, by_i, ds.num_users)
+    adj = _adjacency(ds)
+    want = oracle.ials(adj, cfg, u0, v0)
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4,
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
                                atol=_atol(dim))
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4,
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
                                atol=_atol(dim))
     # iALS's stored loss is the PRE-epoch model's, with no /2
     # (ials.h:70-86)
-    g0 = v0.T @ v0
-    for u in list(by_u)[:10]:
-        p = v0[by_u[u]] @ u0[u]
-        want = np.mean((p - 1.0) ** 2) + cfg.uobs_weight * u0[u] @ g0 @ u0[u]
-        assert got["user_loss"][u] == pytest.approx(want, rel=2e-4, abs=2e-5)
+    for u in list(adj.by_u)[:10]:
+        assert got["user_loss"][u] == pytest.approx(want["user_loss"][u],
+                                                     rel=2e-4, abs=2e-5)
 
 
 def test_erm_mf_epoch_matches_numpy_oracle(small):
@@ -346,37 +297,24 @@ def test_erm_mf_epoch_matches_numpy_oracle(small):
     m = get_model("erm_mf", cfg, ds.num_users, ds.num_items, device="cpu")
     m.initialize(dd)
     u0, v0 = _init_tables(m, dd)
-    o = _SaferOracle(ds, cfg)
-    loss0, alpha = o.losses(u0, v0), cfg.alpha
+    adj = _adjacency(ds)
+    want = oracle.erm_mf(adj, cfg, u0, v0)
+    loss0 = want["user_loss"]
     # initialize computes the losses and nothing else
     init = m.export_state(dd)
-    np.testing.assert_allclose(init["user_loss"][o.present],
-                               loss0[o.present], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(init["user_loss"][adj.present],
+                               loss0[adj.present], rtol=2e-4, atol=2e-5)
     assert init["xi"] == 0.0 and m.state.steps == 0
-
-    g = v0.T @ v0
-    u1 = u0.copy()
-    for u, hist in o.by_u.items():
-        vh = v0[hist]
-        a = (alpha * (vh.T @ vh / len(hist) + cfg.uobs_weight * g)
-             + o.u_reg * np.eye(cfg.dim))
-        u1[u] = np.linalg.solve(a, (alpha / len(hist)) * vh.sum(0))
-    gw = alpha * (u1.T @ u1)
-    v1 = v0.copy()
-    for i, users in o.by_i.items():
-        uh = u1[users]
-        wt = np.array([alpha / o.hist_size[u] for u in users])
-        a = (cfg.uobs_weight * gw + (uh * wt[:, None]).T @ uh
-             + o.item_reg[i] * np.eye(cfg.dim))
-        v1[i] = np.linalg.solve(a, (uh * wt[:, None]).sum(0))
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["dual_weight"], alpha, atol=1e-7)
-    np.testing.assert_allclose(got["user_loss"][o.present], loss0[o.present],
-                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["dual_weight"], cfg.alpha, atol=1e-7)
+    np.testing.assert_allclose(got["user_loss"][adj.present],
+                               loss0[adj.present], rtol=2e-4, atol=2e-5)
 
 
 def test_cvar_mf_epoch_matches_numpy_oracle(small):
@@ -391,63 +329,26 @@ def test_cvar_mf_epoch_matches_numpy_oracle(small):
     m.initialize(dd)
     assert float(m.state.xi) == 0.0 and m.state.steps == 0
     u, v = _init_tables(m, dd)
-    o = _SaferOracle(ds, cfg)
-    nu, eta = ds.num_users, cfg.stepsize
-    dual = np.full(nu, cfg.alpha)
-    xi, loss = 0.0, None
+    adj = _adjacency(ds)
+    want = dict(user_emb=u, item_emb=v)
     for epoch in range(2):
-        loss = o.losses(u, v)
-        if epoch > 0:
-            q = min(int(nu * cfg.alpha), nu - 1)
-            xi = np.sort(loss)[nu - 1 - q]
-        dual = np.where(o.present, (loss - xi >= 0.0).astype(float), dual)
-        g = v.T @ v
-        u_prev = u.copy()
-        for uu, hist in o.by_u.items():
-            vh = v[hist]
-            w = dual[uu]
-            a_u = (w * (vh.T @ vh / len(hist) + cfg.uobs_weight * g)
-                   @ u[uu] + o.u_reg * u[uu])
-            u[uu] = u[uu] - eta * (a_u - (w / len(hist)) * vh.sum(0))
-        gw = u_prev.T @ (u_prev * dual[:, None])
-        v_new = v.copy()
-        for i, users in o.by_i.items():
-            uh = u_prev[users]
-            wt = np.array([dual[x] / o.hist_size[x] for x in users])
-            a_v = (cfg.uobs_weight * gw @ v[i]
-                   + (uh * wt[:, None]).T @ (uh @ v[i])
-                   + o.item_reg[i] * v[i])
-            v_new[i] = v[i] - eta * (a_v - (uh * wt[:, None]).sum(0))
-        v = v_new
+        want = oracle.cvar_mf(adj, cfg, want["user_emb"], want["item_emb"],
+                              xi=want.get("xi", 0.0),
+                              dual=want.get("dual_weight"), steps=epoch)
         m.train_epoch(dd)
 
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["xi"], xi, rtol=1e-4, atol=1e-6)
-    np.testing.assert_array_equal(got["dual_weight"][o.present],
-                                  dual[o.present])
-    assert 0 < dual[o.present].sum() < o.present.sum()
-    np.testing.assert_allclose(got["user_loss"][o.present], loss[o.present],
-                               rtol=2e-4, atol=2e-5)
-
-
-def _block_delta_step(x, vh, g, S, ch, cg, reg):
-    """One reference block delta solve (ialspp.h:85-145 /
-    safer2pp.h:97-159); ``ch`` a vector carries per-slot weights."""
-    pred = vh @ x
-    vloc = vh[:, S]
-    if np.ndim(ch) == 0:
-        a = ch * (vloc.T @ vloc)
-        r_h = ch * (vloc.T @ (pred - 1.0))
-    else:
-        a = (vloc * ch[:, None]).T @ vloc
-        r_h = (vloc * ch[:, None]).T @ (pred - 1.0)
-    a = a + cg * g[S, S] + reg * np.eye(S.stop - S.start)
-    rhs = r_h + cg * (g[S, :] @ x) + reg * x[S]
-    out = x.copy()
-    out[S] = x[S] - np.linalg.solve(a, rhs)
-    return out
+    present, dual = adj.present, want["dual_weight"]
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["xi"], want["xi"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got["dual_weight"][present], dual[present])
+    assert 0 < dual[present].sum() < present.sum()
+    np.testing.assert_allclose(got["user_loss"][present],
+                               want["user_loss"][present], rtol=2e-4,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("bs", [4, 3])
@@ -461,27 +362,13 @@ def test_ialspp_frozen_epoch_matches_numpy_oracle(small, bs):
                  **IALS_CFG)
     m = get_model("ialspp", cfg, ds.num_users, ds.num_items, device="cpu")
     u0, v0 = _init_tables(m, dd)
-    by_u, by_i = _adj(ds)
-    blocks = [slice(k, min(k + bs, 8)) for k in range(0, 8, bs)]
-
-    def sweep(table_self, table_other, adj, n_choices):
-        g = table_other.T @ table_other
-        out = table_self.copy()
-        for r, hist in adj.items():
-            x = out[r].copy()
-            rg = cfg.l2_reg * (len(hist) + cfg.uobs_weight * n_choices)
-            for S in blocks:
-                x = _block_delta_step(x, table_other[hist], g, S, 1.0,
-                                      cfg.uobs_weight, rg)
-            out[r] = x
-        return out
-
-    u1 = sweep(u0, v0, by_u, ds.num_items)
-    v1 = sweep(v0, u1, by_i, ds.num_users)
+    want = oracle.ialspp(_adjacency(ds), cfg, u0, v0)
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=2e-5)
 
 
 def test_safer2pp_epoch_matches_numpy_oracle(small):
@@ -496,39 +383,21 @@ def test_safer2pp_epoch_matches_numpy_oracle(small):
     m = get_model("safer2pp", cfg, ds.num_users, ds.num_items, device="cpu")
     m.initialize(dd)
     u1, v1 = _init_tables(m, dd)
-    o = _SaferOracle(ds, cfg)
-    loss0 = o.losses(u1, v1)
-    xi = loss0.mean()
-    dual = o.dual_of(loss0, xi)
-    norm_dual = np.where(o.present, dual / np.maximum(o.hist_size, 1.0), 0.0)
-    blocks = [slice(k, k + 4) for k in range(0, 8, 4)]
-
-    g = v1.T @ v1
-    for S in blocks:
-        nxt = u1.copy()
-        for r, hist in o.by_u.items():
-            w = dual[r]
-            nxt[r] = _block_delta_step(u1[r], v1[hist], g, S, w / len(hist),
-                                       cfg.uobs_weight * w, o.u_reg)
-        u1 = nxt
-    gw = u1.T @ (u1 * dual[:, None])
-    for S in blocks:
-        nxt = v1.copy()
-        for r, hist in o.by_i.items():
-            nxt[r] = _block_delta_step(v1[r], u1[hist], gw, S,
-                                       norm_dual[hist], cfg.uobs_weight,
-                                       o.item_reg[r])
-        v1 = nxt
+    adj = _adjacency(ds)
+    want = oracle.safer2pp(adj, cfg, u1, v1)
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["dual_weight"], dual, rtol=1e-4,
-                               atol=1e-5)
-    np.testing.assert_allclose(got["xi"], xi, rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(got["user_loss"][o.present], loss0[o.present],
-                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got["dual_weight"], want["dual_weight"],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["xi"], want["xi"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got["user_loss"][adj.present],
+                               want["user_loss"][adj.present], rtol=2e-4,
+                               atol=2e-5)
 
 
 def test_ialspp_full_block_equals_ials():

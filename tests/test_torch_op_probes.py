@@ -22,7 +22,8 @@ import jax
 import jax.numpy as jnp
 
 from safer2_recommender_tpu_torch import probes
-from safer2_recommender_tpu_torch.probes import eigh, gather, quantile, seqdot
+from safer2_recommender_tpu_torch.probes import (eigh, gather, oracle,
+                                                 quantile, seqdot)
 from safer2_recommender_tpu_torch.utils.device import matmul_precision
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
@@ -154,7 +155,7 @@ def test_seqdot_sizes_are_the_script():
         probes.CHAIN_KS
 
 
-@pytest.mark.parametrize("probe", [quantile, gather, eigh, seqdot],
+@pytest.mark.parametrize("probe", [quantile, gather, eigh, seqdot, oracle],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_probe_refuses_the_cpu(probe):
     with pytest.raises(ValueError, match="CUDA device"):
@@ -163,7 +164,7 @@ def test_probe_refuses_the_cpu(probe):
 
 @pytest.mark.parametrize("probe, argv", [
     (quantile, ["1000", "0.3"]), (gather, ["--part", "scatter"]),
-    (eigh, ["--part", "sizes"]), (seqdot, None)],
+    (eigh, ["--part", "sizes"]), (seqdot, None), (oracle, ["--dims", "8"])],
     ids=lambda p: getattr(p, "__name__", "").rsplit(".", 1)[-1])
 def test_probe_main_exits_1_without_cuda(probe, argv, capsys, monkeypatch):
     # the command line refuses a machine without CUDA and prints no
@@ -402,13 +403,17 @@ def test_eigh_reconstructs_as_jax(gram, which):
     assert np.all(np.abs(w.numpy() - np.asarray(wj)) <= 1e-6 * scale)
 
 
-@pytest.mark.parametrize("error, error_f64, finite, ok", [
-    (4.5e-4, 4e-8, True, True), (1e-2, 4e-8, True, False),
-    (4.5e-4, 2e-5, True, False), (4.5e-4, 4e-8, False, False)])
-def test_eigh_row_checks(error, error_f64, finite, ok):
-    # the float64 route to RECON_TOL, the float32 route (the port's) to
-    # the JAX package's Woodbury bound, and nothing that is not finite
-    assert eigh.eigh_ok(dict(error=error, error_f64=error_f64,
+@pytest.mark.parametrize("error_route, orth_route, error_f64, finite, ok", [
+    (4e-8, 1e-6, 4e-8, True, True), (2e-5, 1e-6, 4e-8, True, False),
+    (4e-8, 2e-4, 4e-8, True, False), (4e-8, 1e-6, 2e-5, True, False),
+    (4e-8, 1e-6, 4e-8, False, False)])
+def test_eigh_row_checks(error_route, orth_route, error_f64, finite, ok):
+    # the port's route (woodbury.sym_eigh) and the float64 route to
+    # RECON_TOL, the port's orthogonal to ORTH_TOL, and nothing that is
+    # not finite; the raw float32 call (4.5e-4 here, the card's Jacobi at
+    # 512) is a reading
+    assert eigh.eigh_ok(dict(error=4.5e-4, orth=5e-3, error_f64=error_f64,
+                             error_route=error_route, orth_route=orth_route,
                              finite=finite)) is ok
 
 
@@ -525,3 +530,45 @@ def test_seqdot_chain_underflows_by_step_five(d):
     with matmul_precision("highest"):
         xs = seqdot.chain(seqdot.seq_step, x0, 5)
     assert bool((xs[2] != 0).any()) and bool((xs[4] == 0).all())
+
+
+def _fake_tree(root, eigh_ms):
+    """A tree whose ``epoch_profile`` prints the two ``[classes]`` lines
+    that ``probes/epoch_ab.py`` reads, with its tree's name."""
+    probes_dir = root / "safer2_recommender_tpu_torch" / "probes"
+    probes_dir.mkdir(parents=True)
+    for d in (probes_dir.parent, probes_dir):
+        (d / "__init__.py").write_text("")
+    (probes_dir / "epoch_profile.py").write_text(
+        "import sys\n"
+        "w = sys.argv[2]\n"
+        f"print(f'[classes {{w}}] device kernel time 100.5 ms/epoch over 2"
+        f" epochs')\n"
+        f"print(f'[classes {{w}}]   eigh      {eigh_ms} ms/epoch   9.9%')\n")
+    return str(root)
+
+
+def test_epoch_ab_runs_each_tree_in_turn_and_reads_the_eigh_class(
+        tmp_path, capsys):
+    from safer2_recommender_tpu_torch.probes import epoch_ab
+
+    parent = _fake_tree(tmp_path / "parent", 16.5)
+    change = _fake_tree(tmp_path / "change", 9.5)
+    out = tmp_path / "out"
+    assert epoch_ab.main([parent, change, "--workloads", "synth50k",
+                          "--out", str(out)]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[epoch-ab]")]
+    assert [ln.split(":")[0] for ln in lines] == [
+        f"[epoch-ab] synth50k run {k} {side}"
+        for k, side in enumerate(epoch_ab.ORDER, 1)]
+    assert [("16.5" in ln, "9.5" in ln) for ln in lines] == [
+        (True, False), (False, True), (False, True), (True, False)]
+    assert all("all kernels 100.5 ms" in ln for ln in lines)
+    assert sorted(os.listdir(out)) == sorted(
+        f"{k}_{side}_synth50k.out" for k, side in enumerate(epoch_ab.ORDER, 1))
+    # a tree whose profile prints no eigh row makes the exit code 1
+    (tmp_path / "change" / "safer2_recommender_tpu_torch" / "probes"
+     / "epoch_profile.py").write_text("print('nothing')\n")
+    assert epoch_ab.main([parent, change, "--workloads", "synth50k",
+                          "--out", str(out)]) == 1

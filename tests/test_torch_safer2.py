@@ -6,7 +6,6 @@ so the parity tests carry the JAX package's initial tables across with
 ``interop.state_from_jax``; only numpy crosses between them."""
 
 import os
-from math import erf, sqrt
 
 import numpy as np
 import pytest
@@ -17,6 +16,7 @@ from safer2_recommender_tpu_torch import (SAFER2, Config, Dataset,
                                           DeviceData, FoldInData, get_model,
                                           interop)
 from safer2_recommender_tpu_torch.ops import solve, woodbury
+from safer2_recommender_tpu_torch.probes import oracle
 from safer2_recommender_tpu_torch.utils.device import DeviceUnavailable
 
 ML1M_DIR = os.environ.get(
@@ -109,67 +109,28 @@ def _check_against_oracle(ds, dd, dim):
     m = get_model("safer2", cfg, ds.num_users, ds.num_items, device="cpu")
     m.initialize(dd)
     init = m.export_state(dd)
-    u0 = init["user_emb"].astype(np.float64)
-    v0 = init["item_emb"].astype(np.float64)
-    by_u, by_i = {}, {}
-    for u, i in zip(ds.user_ids, ds.item_ids):
-        by_u.setdefault(int(u), []).append(int(i))
-        by_i.setdefault(int(i), []).append(int(u))
-    nu, ni = ds.num_users, ds.num_items
-
-    def losses(ue, ve):
-        g = ve.T @ ve
-        out = np.zeros(nu)
-        for u, hist in by_u.items():
-            p = ve[hist] @ ue[u]
-            out[u] = 0.5 * (np.mean((p - 1.0) ** 2)
-                            + cfg.uobs_weight * ue[u] @ g @ ue[u])
-        return out
-
-    loss0 = losses(u0, v0)
-    xi = loss0.mean()
-    dual = np.full(nu, cfg.alpha)
-    for u in by_u:
-        r = -(loss0[u] - xi) / cfg.bandwidth
-        dual[u] = 1.0 - 0.5 * (1.0 + erf(r / sqrt(2.0)))
-
-    g = v0.T @ v0
-    u_reg = cfg.l2_reg * (1.0 + cfg.uobs_weight * ni)
-    u1 = u0.copy()
-    for u, hist in by_u.items():
-        vh = v0[hist]
-        w = dual[u]
-        a = (w * (vh.T @ vh / len(hist) + cfg.uobs_weight * g)
-             + u_reg * np.eye(cfg.dim))
-        u1[u] = np.linalg.solve(a, (w / len(hist)) * vh.sum(0))
-
-    gw = u1.T @ (u1 * dual[:, None])
-    hist_size = np.zeros(nu)
-    for u, hist in by_u.items():
-        hist_size[u] = len(hist)
-    v1 = v0.copy()
-    for i, users in by_i.items():
-        uh = u1[users]
-        wt = np.array([dual[u] / hist_size[u] for u in users])
-        stat = sum(1.0 / hist_size[u] for u in users)
-        a = (cfg.uobs_weight * gw + (uh * wt[:, None]).T @ uh
-             + cfg.l2_reg * (stat + cfg.alpha * cfg.uobs_weight * nu)
-             * np.eye(cfg.dim))
-        v1[i] = np.linalg.solve(a, (uh * wt[:, None]).sum(0))
+    adj = oracle.Adjacency(ds.user_ids, ds.item_ids, ds.num_users,
+                           ds.num_items)
+    want = oracle.safer2(adj, cfg, init["user_emb"].astype(np.float64),
+                         init["item_emb"].astype(np.float64))
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    present = hist_size > 0
+    present = adj.present
     # the oracle's bounds (tests/test_numpy_oracle.py): f32 error grows
     # with the accumulation length
     atol = 2e-5 * max(1, dim / 8)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=atol)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=atol)
-    np.testing.assert_allclose(got["dual_weight"][present], dual[present],
-                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["user_emb"], want["user_emb"], rtol=2e-4,
+                               atol=atol)
+    np.testing.assert_allclose(got["item_emb"], want["item_emb"], rtol=2e-4,
+                               atol=atol)
+    np.testing.assert_allclose(got["dual_weight"][present],
+                               want["dual_weight"][present], rtol=1e-4,
+                               atol=1e-5)
     # the stored loss is phase-shifted: it describes the PRE-epoch model
-    np.testing.assert_allclose(got["user_loss"][present], loss0[present],
-                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got["user_loss"][present],
+                               want["user_loss"][present], rtol=2e-4,
+                               atol=2e-5)
 
 
 @pytest.fixture(scope="module")

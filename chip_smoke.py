@@ -37,10 +37,14 @@ Phases, each printing lines to stdout tagged with its name:
   8. dim64: the same run at dim 64 for 3 epochs (the r = 64 kernel
      path); finite tables and the dual-weight gate;
   9. dim512: the same run at dim 512 for 10 epochs (Woodbury solves,
-     rotated direct solves, the warm eigh refresh): the quality gates,
-     finite tables, rows on the Woodbury and rotated paths, a warm
-     refresh, kernel launches at every r, then one recommend() batch of
-     256 users with the serve checks;
+     rotated direct solves, a full eigh every sweep at the default
+     eig_refresh_tol, 0): the quality gates, finite tables, rows on the
+     Woodbury and rotated paths, no warm refresh, kernel launches at
+     every r; then a DIM512_JAX_TOL_EPOCHS run at the JAX package's
+     --eig_refresh_tol 0.08: a warm refresh at least, the NDCG@20 and
+     dual-weight gates; the cold eigh and the warm refresh timed on the
+     trained Gramian; then one recommend() batch of 256 users with the
+     serve checks;
  10. synth50k: the library API on the 50k-user power-law workload at the
      MSD config (dim 512) for 2 epochs: finite tables, rows through the
      column-chunked wide assembly, each epoch's ms and the peak device
@@ -248,8 +252,11 @@ Phases, each printing lines to stdout tagged with its name:
      for SAFER2, iALS and iALS++ at 256 and 512) held to the float64
      numpy oracle run from the same tables: rtol 2e-4, atol 2e-5 x
      max(1, dim / 8) on both tables, whichever refresh branch the epoch
-     took; each epoch's branch the expected one (cold at 512; the warm
-     refresh's second epochs at 256 are readings); at 512 every solve
+     took; each epoch's branch the expected one (no warm refresh at the
+     default eig_refresh_tol; SAFER2, iALS and iALS++ at 256 run at the
+     default, held, and again at the JAX package's 0.08, whose second
+     epochs must take the warm refresh and are readings, printed beside
+     the held ones); at 512 every solve
      route of the model's epoch takes rows (the wide one through a
      lowered WIDE_SLAB_BYTES), every epoch within a max abs error of
      oracle.SHARP_ABS_512 (1.5e-5), and the same epochs run again with
@@ -259,6 +266,16 @@ Phases, each printing lines to stdout tagged with its name:
      seconds. Phases 9 and 10 also hold the
      eigenbases their models carry after the last epoch orthogonal
      within BASIS_ORTH_TOL.
+ 32. refresh (after phase 10): probes/refresh.py on ML-1M (SAFER2) and
+     the 50k workload (SAFER2, iALS, iALS++), dim 512: from states of a
+     default run, the next epoch at the JAX package's eig_refresh_tol
+     0.08 and at the default 0; each eigh's branch, coupling share and
+     ms (CUDA events), the U and V distance of the two epochs; ML-1M's
+     10 epochs at each tolerance with NDCG@20, Recall@20, the mean dual
+     weight and the warm refreshes of each epoch. Fails on tables that
+     are not finite, a warm refresh at the default, a 0.08 branch its
+     coupling share does not give, and the ML-1M quality gates of phase
+     9 at either tolerance.
 Every path's kernel launch counts are set to 0 just before it and read
 just after; on a served path a capture counts no launch and each replay
 counts the launches its capture recorded (serving.py), and each
@@ -326,6 +343,11 @@ MSD_ARGS = ["--uobs_weight", "0.0004", "--l2_reg", "0.0012",
 INTERLEAVED = ["--block_interleaved", "1"]
 # phase 9's ML-1M dim-512 run, the float32 side of phase 19's A/B
 DIM512_EPOCHS = 10
+# phase 9's short run at the JAX package's eig_refresh_tol: on ML-1M
+# at 0.08 the sweeps of epochs 1 and 2 refresh cold (coupling shares
+# 0.84 and 0.0804 against 0.08 on an H100), those of epochs 3 and 4 take
+# the warm branch once each (PERF.md)
+DIM512_JAX_TOL_EPOCHS = 4
 BF16 = ["--compute_dtype", "bf16"]
 # bf16 vs f32 NDCG@20 on ML-1M dim 512: the JAX package's own ablation
 # moved it by 1e-4 at dim 256 (BASELINE.md:183-185)
@@ -631,10 +653,13 @@ def phase_serve(model, batches: int, phase: str = "serve"):
 
 def phase_dim512(cli, block_chol, woodbury):
     """ML-1M at dim 512 through the CLI: the Woodbury and rotated paths,
-    the warm refresh, and the r = 8..64 kernel launches they make."""
+    a full eigh every sweep at the default eig_refresh_tol, the r = 8..64
+    kernel launches they make; then a short run at the JAX package's
+    tolerance, which takes its warm refresh."""
     import torch
 
     from safer2_recommender_tpu_torch import probes
+    from safer2_recommender_tpu_torch.config import JAX_EIG_REFRESH_TOL
     from safer2_recommender_tpu_torch.probes import cuda_ms
 
     torch.cuda.reset_peak_memory_stats()
@@ -653,7 +678,8 @@ def phase_dim512(cli, block_chol, woodbury):
     check_dual(res, "dim 512")
     check(paths["woodbury"] > 0 and paths["rotated"] > 0,
           f"dim 512: a solve path was not taken: {paths}")
-    check(paths["refresh_warm"] > 0, f"dim 512: no warm refresh: {paths}")
+    check(paths["refresh_warm"] == 0,
+          f"dim 512: a warm refresh at the default eig_refresh_tol: {paths}")
     check(all(launches[r] > 0 for r in block_chol.KERNEL_SIZES),
           f"dim 512: no kernel launch at some r: {launches}")
     say("dim512", f"ML-1M SAFER2 dim 512, {DIM512_EPOCHS} epochs: NDCG@20 "
@@ -664,6 +690,32 @@ def phase_dim512(cli, block_chol, woodbury):
         f"kernel launches by r {launches}; largest kernel shape "
         f"{list(max(shapes, key=lambda s: s[0] * s[1] * s[2]))}; peak "
         f"device memory {peak} B")
+    # the JAX package's branch: a short run at its tolerance
+    block_chol.reset_launches()
+    woodbury.reset_solve_paths()
+    res_jax = train(cli, 512, DIM512_JAX_TOL_EPOCHS, args=README_ARGS + [
+        "--eig_refresh_tol", str(JAX_EIG_REFRESH_TOL)])
+    jax_tol = dict(paths=dict(woodbury.SOLVE_PATHS),
+                   launches=dict(block_chol.LAUNCHES),
+                   ndcg20=float(res_jax.metrics.mean_ndcg()[2]),
+                   mean_weights=res_jax.mean_weights,
+                   epoch_ms=res_jax.epoch_ms)
+    check(finite_tables(res_jax.model.state),
+          "dim 512 at tol 0.08: nonfinite tables")
+    check(jax_tol["paths"]["refresh_warm"] > 0,
+          f"dim 512 at tol {JAX_EIG_REFRESH_TOL}: no warm refresh: "
+          f"{jax_tol['paths']}")
+    check(jax_tol["ndcg20"] >= NDCG20_MIN,
+          f"dim 512 at tol {JAX_EIG_REFRESH_TOL}: NDCG@20 "
+          f"{jax_tol['ndcg20']} < {NDCG20_MIN}")
+    check_dual(res_jax, f"dim 512 at tol {JAX_EIG_REFRESH_TOL}")
+    say("dim512", f"the same at the JAX package's --eig_refresh_tol "
+        f"{JAX_EIG_REFRESH_TOL}, {DIM512_JAX_TOL_EPOCHS} epochs: NDCG@20 "
+        f"{jax_tol['ndcg20']:.4f}; mean dual weight "
+        f"{[round(w, 4) for w in res_jax.mean_weights]}; epoch ms "
+        f"{res_jax.epoch_ms}; solve paths (padded rows; refreshes) "
+        f"{jax_tol['paths']}")
+    del res_jax
     # the two eigh branches on the trained model's own Gramian and basis
     # (tol 1 forces the warm one); outside the counted run
     state = res.model.state
@@ -680,7 +732,8 @@ def phase_dim512(cli, block_chol, woodbury):
     serve = phase_serve(res.model, 1, "dim512")
     return dict(res=res, launches=launches, shapes=shapes, paths=paths,
                 serve=serve, serve_launches=block_chol.total_launches(),
-                eigh_ms=eigh_ms, basis_orth=orth, peak_bytes=peak)
+                eigh_ms=eigh_ms, basis_orth=orth, peak_bytes=peak,
+                jax_tol=jax_tol)
 
 
 def basis_orth(state, tag: str) -> dict:
@@ -742,6 +795,33 @@ def phase_synth(block_chol, woodbury, device, workload, setup_s, epochs=2):
     return dict(epoch_ms=epoch_ms, paths=paths, launches=launches,
                 peak_bytes=peak, shapes=shapes, model=model,
                 basis_orth=orth)
+
+
+def phase_refresh(block_chol, device, workload) -> dict:
+    """[refresh]: probes/refresh.py on ML-1M (SAFER2) and the 50k
+    ``workload`` (SAFER2, iALS, iALS++) at dim 512: the JAX package's
+    warm refresh against the default full eigh from the same states;
+    the probe's checks and phase 9's quality gates at both
+    tolerances."""
+    from safer2_recommender_tpu_torch.probes import refresh
+
+    block_chol.reset_launches()
+    rows = refresh.run(device, ("ml1m", "synth50k"),
+                       data={"synth50k": workload})
+    launches = dict(block_chol.LAUNCHES)
+    for row in rows:
+        for line in refresh.describe(row):
+            say("refresh", line)
+    bad = [b for row in rows for b in refresh.check(row)]
+    check(not bad, f"refresh: {bad}")
+    for tol, q in rows[0]["quality"].items():
+        check(q["ndcg20"] >= NDCG20_MIN,
+              f"refresh: ML-1M at tol {tol}: NDCG@20 {q['ndcg20']}")
+        check(all(abs(w - ALPHA) <= DUAL_TOL for w in q["mean_weight"]),
+              f"refresh: ML-1M at tol {tol}: mean dual weight "
+              f"{q['mean_weight']} left {ALPHA} +/- {DUAL_TOL}")
+    check(sum(launches.values()) > 0, "refresh: no chol_inverse launch")
+    return dict(rows=rows, launches=launches)
 
 
 def phase_models(cli, block_chol, ckpt_root):
@@ -2325,7 +2405,9 @@ def phase_oracle(block_chol, device) -> dict:
     rtol 2e-4, atol 2e-5 x max(1, dim / 8) (oracle.row_ok), at 512 to
     oracle.SHARP_ABS_512 too, with the raw float32 eigh's run its
     control, every solve route of the model's epoch taking rows at 512;
-    the warm refresh's epochs at 256 are readings."""
+    SAFER2, iALS and iALS++ at 256 held at the default eig_refresh_tol,
+    and at the JAX package's 0.08 the warm refresh's second epochs
+    printed beside them as readings."""
     from safer2_recommender_tpu_torch.probes import oracle
 
     block_chol.reset_launches()
@@ -2460,6 +2542,9 @@ def run_phases(device, ckpt_root: str) -> None:
     workload = epoch_profile.workload("synth50k", device)
     synth = phase_synth(block_chol, woodbury, device, workload,
                         time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    refresh_res = phase_refresh(block_chol, device, workload)
+    say("refresh", f"phase {time.perf_counter() - t0:.1f} s")
 
     models, trained = phase_models(cli, block_chol, ckpt_root)
     inter, inter_trained = phase_interleaved(cli, block_chol, woodbury,
@@ -2651,6 +2736,8 @@ def run_phases(device, ckpt_root: str) -> None:
                      "safer2_recommender_tpu/ops/block_chol.py:163 "
                      "(_lane_matmul/_lane_matmul_kernel)"),
         "launches": (sum(d512["launches"].values())
+                     + sum(d512["jax_tol"]["launches"].values())
+                     + sum(refresh_res["launches"].values())
                      + sum(sum(m["launches"].values())
                            for m in models.values())
                      + sum(m["total_launches"]
@@ -2694,6 +2781,8 @@ def run_phases(device, ckpt_root: str) -> None:
             "ml1m_dim32": dim32_launches, "serve_dim32": serve_launches,
             "ml1m_dim64": dim64_launches,
             "ml1m_dim512": d512["launches"],
+            "ml1m_dim512_jax_tol": d512["jax_tol"]["launches"],
+            "refresh": refresh_res["launches"],
             "serve_dim512": d512["serve_launches"],
             "synth50k_dim512": synth["launches"],
             "ml1m_dim32_models": {n: m["launches"]
@@ -2745,6 +2834,7 @@ def run_phases(device, ckpt_root: str) -> None:
         "ml1m_dim512_ndcg20": ndcg512,
         "ml1m_dim512": d512,
         "synth50k": synth,
+        "refresh": refresh_res["rows"],
         "ml1m_dim32_models": models,
         "synth50k_models": synth_models,
         "ml1m_interleaved": inter,

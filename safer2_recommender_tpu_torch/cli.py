@@ -109,7 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard over this many devices, one spawned local "
                         "process each (0 = single device)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--eig_refresh_tol", type=float, default=8e-2)
+    p.add_argument("--eig_refresh_tol", type=float, default=0.0,
+                   help="warm eigenbasis refresh tolerance at dim >= 256: "
+                        "0 (default) takes a full eigh every sweep; 0.08 "
+                        "is the JAX package's default and its warm branch")
     p.add_argument("--block_interleaved", type=int, default=0)
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--checkpoint_every", type=int, default=0)

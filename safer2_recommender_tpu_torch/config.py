@@ -15,6 +15,11 @@ from __future__ import annotations
 import dataclasses
 
 
+# The JAX package's default ``eig_refresh_tol`` (its TPU trade between
+# the warm refresh and a full eigh); the port's default is 0.
+JAX_EIG_REFRESH_TOL = 8e-2
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """All model hyperparameters (frozen, so a model's config cannot
@@ -79,8 +84,15 @@ class Config:
     eval_fold_in_epochs: int = 8
     # Warm-started eigh refresh tolerance of the Woodbury path at
     # dim >= 256 (ops/woodbury.py::refresh_eigh); 0 takes a full eigh
-    # every sweep.
-    eig_refresh_tol: float = 8e-2
+    # every sweep, and is the port's default: on the H100 the full
+    # float64 eigh is exact and faster at every measured shape (256 in
+    # 2.21 ms where the warm [2, 128] blocks take 3.33; 512 in 4.91
+    # where [4, 128] take 6.59; PERF.md), and the warm branch keeps
+    # Q_prev blkdiag(B_kk) Q_prev^T, dropping up to the tolerance's
+    # share of the Gramian's norm. The JAX package's 0.08
+    # (JAX_EIG_REFRESH_TOL) is its TPU trade; passing it takes the
+    # JAX package's warm branch, bit for bit.
+    eig_refresh_tol: float = 0.0
     # Reference-order blockwise training of the ++ models (per block,
     # StepU then StepV); needs dim % block_size == 0, otherwise the
     # frozen sweep runs with a warning, as in the JAX package.

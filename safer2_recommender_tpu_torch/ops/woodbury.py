@@ -105,7 +105,7 @@ def sym_eigh(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # Warm-started refresh: block size of the batched diagonal-block eighs
-# and the minimum dim at which the refresh pays.
+# and the minimum dim at which the JAX package takes the refresh.
 _REFRESH_BLOCK = 128
 _REFRESH_MIN_DIM = 256
 
@@ -126,6 +126,15 @@ def refresh_eigh(gram: torch.Tensor, q_prev: torch.Tensor,
     The JAX package chooses the branch on the device (``lax.cond``);
     here the choice is a Python branch on the coupling test, which costs
     one device-to-host read per call (one per sweep).
+
+    On an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md) the warm
+    branch is the dearer one at dim 512: its four float64 [128, 128]
+    eighs (``sym_eigh``), the rotations and the host read take 7.1-9.9
+    ms a call inside an epoch, where a full ``sym_eigh`` of the Gramian
+    takes 4.9-5.4 ms and the cold branch, the full eigh after the
+    coupling test, 5.3-6.9. So the port's default ``eig_refresh_tol`` is
+    0, which never calls this (``maybe_eigh``); at the JAX package's
+    0.08 it runs as the JAX package's does.
     """
     d = gram.shape[0]
     k = d // _REFRESH_BLOCK

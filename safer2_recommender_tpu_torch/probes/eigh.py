@@ -4,7 +4,8 @@ warm-started refresh (the counterpart of the JAX package's
 ``scripts/probe_eigh.py`` and ``scripts/probe_eigh2.py``, which asked the
 same of XLA on a TPU).
 
-    python -m safer2_recommender_tpu_torch.probes.eigh [--part shared|sizes|route|all]
+    python -m safer2_recommender_tpu_torch.probes.eigh \
+        [--part shared|sizes|route|all|refresh]
 
 Inputs are the scripts', drawn from ``np.random.default_rng(0)`` in
 their order and at their sizes. ``shared`` (``probe_eigh.py``): the
@@ -21,9 +22,11 @@ order:
   two lengths), with TFLOP/s;
 - a 1% drift G2 of G: the off-diagonal share of Q^T G2 Q in the old
   basis, and the error of keeping the old basis;
-- the port's own ``woodbury.refresh_eigh`` on G2 from G's basis at
-  ``Config().eig_refresh_tol``: the branch it took (``SOLVE_PATHS``),
-  its reconstruction error, and its ms per call beside a cold eigh of G2.
+- the port's own ``woodbury.refresh_eigh`` on G2 from G's basis at the
+  JAX package's tolerance (``config.JAX_EIG_REFRESH_TOL``, 0.08: the
+  warm branch the script timed; the port's default, 0, takes a full
+  eigh): the branch it took (``SOLVE_PATHS``), its reconstruction
+  error, and its ms per call beside a cold eigh of G2.
 
 ``sizes`` (``probe_eigh2.py``): ``torch.linalg.eigh`` of random Gramians
 at each (batch, d) of ``SIZES``, per call beside one matrix of the batch
@@ -54,6 +57,11 @@ float32, and the port's ``woodbury.sym_eigh``. Every product runs at
 as does a reconstruction of the float64 route or of the port's above
 ``RECON_TOL``, or the port's orthogonality above ``ORTH_TOL``; the
 float32 call is a reading. A machine without CUDA is an error.
+
+``refresh`` (``probes/refresh.py``, not part of ``all``): the next
+epoch of ML-1M, the 50k set and the full synthetic MSD set at dim 512,
+from one trained state, at the JAX package's tolerance and at the
+port's default, side by side.
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ import numpy as np
 import torch
 
 from safer2_recommender_tpu_torch import probes
-from safer2_recommender_tpu_torch.config import Config
+from safer2_recommender_tpu_torch.config import JAX_EIG_REFRESH_TOL
 from safer2_recommender_tpu_torch.ops import woodbury
 from safer2_recommender_tpu_torch.utils.device import matmul_precision
 
@@ -278,7 +286,7 @@ def _shared(device) -> dict:
     w, q = woodbury.sym_eigh(g)
     g2 = drifted(g, torch.from_numpy(drift_host).to(device))
     drift = drift_readings(q, g2)
-    tol = Config().eig_refresh_tol
+    tol = JAX_EIG_REFRESH_TOL
     branch, q2, lam2 = refresh(g2, q, tol)
     times = probes.in_turns({
         "refresh_eigh": lambda: refresh(g2, q, tol),
@@ -410,13 +418,25 @@ def describe(res: dict) -> List[str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=PARTS + ("all",), default="all")
+    ap.add_argument("--part", choices=PARTS + ("all", "refresh"),
+                    default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe: torch.cuda.is_available() is false; this probe "
               "measures an NVIDIA GPU", file=sys.stderr)
         return 1
     print(probes.nvidia_smi(), flush=True)
+    if args.part == "refresh":
+        from safer2_recommender_tpu_torch.probes import refresh
+
+        rows = refresh.run()
+        for row in rows:
+            for line in refresh.describe(row):
+                print(line, flush=True)
+        bad = [b for row in rows for b in refresh.check(row)]
+        for b in bad:
+            print("FAILED: " + b, flush=True)
+        return 1 if bad else 0
     res = run(parts=PARTS if args.part == "all" else (args.part,))
     for line in describe(res):
         print(line, flush=True)

@@ -40,10 +40,14 @@ see that float32 basis at 512, so there every epoch is also held to a
 max abs error of ``SHARP_ABS_512``, and the raw float32 run is its
 control: where the epoch decomposes the full-dim Gramian, it must exceed
 that limit. SAFER2, iALS and iALS++ run two epochs at 512 (the second
-refreshes the carried eigenbasis, by the cold branch on this data; the
-row asserts it), CVaR-MF two everywhere (the first keeps xi at 0); at
-``WARM_DIM`` (256) the three run two epochs on the small set, whose
-second takes the warm refresh: those epochs are readings.
+starts from a carried eigenbasis; at the default ``eig_refresh_tol``, 0,
+it takes a full eigh, and no epoch may take the warm refresh), CVaR-MF
+two everywhere (the first keeps xi at 0); at ``WARM_DIM`` (256) the
+three run two epochs on the small set at the default, held like every
+other epoch, and again at the JAX package's tolerance
+(``config.JAX_EIG_REFRESH_TOL``, 0.08), whose second epoch takes the
+warm refresh: those second epochs are readings, printed beside the
+held ones.
 The frozen ++ models also run at dim 64, block 32, the one dim of these
 whose epochs take the block-level Woodbury (``block_woodbury``: the
 full-dim eigenbasis supersedes it from dim 128).
@@ -58,11 +62,11 @@ import os
 import sys
 import time
 from math import erf, sqrt
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from safer2_recommender_tpu_torch.config import Config
+from safer2_recommender_tpu_torch.config import JAX_EIG_REFRESH_TOL, Config
 
 RTOL = 2e-4
 DIMS = (8, 128, 512)
@@ -407,12 +411,14 @@ CASES = {
 BLOCK_WOODBURY_DIM = 64
 # the models whose second epoch refreshes a carried eigenbasis
 CARRIED_BASIS = ("safer2", "ials", "ialspp")
-# The warm refresh (``woodbury.refresh_eigh`` at ``eig_refresh_tol``
-# 0.08) drops up to 8% of the rotated Gramian's norm: an approximation
-# of the exact epoch, in the JAX package too. At dim 256 on the small
-# set the second epoch of these takes it; those epochs are readings, not
-# held to the bound (an open fault, ROADMAP Queue 3). Every other epoch
-# is held, whichever branch it took, and must take the cold one.
+# At the port's default ``eig_refresh_tol`` (0) every eigenbasis is a
+# full eigh, and every epoch is held to the bound, the second epochs at
+# WARM_DIM (256, the small set) of these three included; none may take
+# the warm refresh. At the JAX package's 0.08 the warm refresh
+# (``woodbury.refresh_eigh``) drops up to 8% of the rotated Gramian's
+# norm, an approximation of the exact epoch in the JAX package too: the
+# same second epochs at 0.08 must take it and are readings, not held
+# (the first epoch, from the identity basis, is held).
 WARM_DIM = 256
 # At dim 512 the oracle's bound (atol 1.28e-3) cannot see a float32
 # Jacobi basis, so every epoch there is also held to this max abs error,
@@ -432,13 +438,16 @@ def epochs_of(key: str, dim: int) -> int:
 
 
 def cases(dims: Sequence[int] = DIMS) -> List[tuple]:
-    """(key, dim) of every run: each case at each dim, and when 512 is
-    run, the frozen ++ models at ``BLOCK_WOODBURY_DIM`` and the warm
-    refresh's readings at ``WARM_DIM``."""
+    """(key, dim) of every run at the default ``Config``, or (key, dim,
+    eig_refresh_tol): each case at each dim, and when 512 is run, the
+    frozen ++ models at ``BLOCK_WOODBURY_DIM`` and ``CARRIED_BASIS`` at
+    ``WARM_DIM``, each at the default and then at the JAX package's
+    tolerance (the warm refresh's readings)."""
     out = [(key, dim) for dim in dims for key in CASES]
     if 512 in dims:
         out += [(key, BLOCK_WOODBURY_DIM) for key in ("ialspp", "safer2pp")]
-        out += [(key, WARM_DIM) for key in CARRIED_BASIS]
+        for key in CARRIED_BASIS:
+            out += [(key, WARM_DIM), (key, WARM_DIM, JAX_EIG_REFRESH_TOL)]
     return out
 
 
@@ -467,9 +476,12 @@ def pairs_for(dim: int) -> np.ndarray:
     return small_pairs() if dim <= WARM_DIM else power_pairs()
 
 
-def config(key: str, dim: int) -> Config:
-    return Config(dim=dim, block_size=BLOCK[dim], compute_dtype="f32",
-                  seed=5, **CASES[key].cfg)
+def config(key: str, dim: int, tol: Optional[float] = None) -> Config:
+    """The case's config at ``dim``; ``tol`` sets ``eig_refresh_tol``
+    (None: the default)."""
+    cfg = Config(dim=dim, block_size=BLOCK[dim], compute_dtype="f32",
+                 seed=5, **CASES[key].cfg)
+    return cfg if tol is None else cfg.replace(eig_refresh_tol=tol)
 
 
 def exact_rows(buckets, perm, n: int, dim: int) -> np.ndarray:
@@ -592,9 +604,11 @@ def decomposes(paths: dict) -> bool:
     return paths["woodbury"] + paths["rotated"] > 0
 
 
-def port_case(key: str, dim: int, data, device) -> dict:
-    """One model at one dim on ``device``: the port's epochs (and at 512
-    the raw float32 eigh's), the routes, the carried basis; the row
+def port_case(key: str, dim: int, data, device,
+              tol: Optional[float] = None) -> dict:
+    """One model at one dim (at ``eig_refresh_tol`` ``tol``, None: the
+    default) on ``device``: the port's epochs (and at 512 the raw
+    float32 eigh's), the routes, the carried basis; the row
     ``finish_case`` completes."""
     import torch
 
@@ -603,7 +617,7 @@ def port_case(key: str, dim: int, data, device) -> dict:
 
     case = CASES[key]
     ds, dd = data
-    cfg = config(key, dim)
+    cfg = config(key, dim, tol)
     epochs = epochs_of(key, dim)
     exact = (exact_rows(dd.by_user, dd.user_perm, ds.num_users, dim),
              exact_rows(dd.by_item, dd.item_perm, ds.num_items, dim))
@@ -624,19 +638,23 @@ def port_case(key: str, dim: int, data, device) -> dict:
     if key in ("ialspp", "safer2pp") and dim == BLOCK_WOODBURY_DIM:
         routes = ("block", "block_woodbury")
     if dim == WARM_DIM and key in CARRIED_BASIS:
-        routes = ("refresh_warm",)
+        routes = ("refresh_warm",) if cfg.eig_refresh_tol > 0 else (
+            "woodbury",)
     del model
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-    return dict(key=key, dim=dim, epochs=epochs, block=cfg.block_size,
-                paths=paths, routes=routes, launches=launches,
-                carried_orth=q_orth, states=states, raw=raw, exact=exact,
+    return dict(key=key, dim=dim, tol=cfg.eig_refresh_tol, epochs=epochs,
+                block=cfg.block_size, paths=paths, routes=routes,
+                launches=launches, carried_orth=q_orth, states=states,
+                raw=raw, exact=exact,
                 missing=[r for r in routes if paths[r] == 0])
 
 
-def warm_reading(key: str, dim: int) -> bool:
-    """Whether the row's later epochs are the warm refresh's readings."""
-    return dim == WARM_DIM and key in CARRIED_BASIS
+def warm_reading(part: dict) -> bool:
+    """Whether the row's later epochs are the warm refresh's readings:
+    a run at a nonzero ``eig_refresh_tol`` (the JAX package's
+    branch)."""
+    return part["tol"] > 0
 
 
 def finish_case(part: dict, want, host_s: float) -> dict:
@@ -651,7 +669,7 @@ def finish_case(part: dict, want, host_s: float) -> dict:
            if k not in ("states", "raw", "exact")}
     n, dim = part["epochs"], part["dim"]
     err = [errors(part["states"][e + 1], want[e + 1], dim) for e in range(n)]
-    reading = warm_reading(part["key"], dim)
+    reading = warm_reading(part)
     row.update(errors=err, reading=reading,
                ok=all(e["ok"] for i, e in enumerate(err)
                       if not (reading and i > 0)),
@@ -708,10 +726,11 @@ def _one_blas_thread():
 
 
 def run_cases(todo, device, workers: int = 0) -> List[dict]:
-    """``port_case`` over ``todo`` on ``device``, one dataset per data
-    kind, while the oracles' trajectories run in ``workers`` spawned
-    processes (0: one a CPU core, up to 8), each from the port's initial
-    tables; the rows in ``todo``'s order."""
+    """``port_case`` over ``todo`` ((key, dim) or (key, dim, tol), as
+    ``cases`` gives them) on ``device``, one dataset per data kind,
+    while the oracles' trajectories run in ``workers`` spawned processes
+    (0: one a CPU core, up to 8), each from the port's initial tables;
+    the rows in ``todo``'s order."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -719,11 +738,11 @@ def run_cases(todo, device, workers: int = 0) -> List[dict]:
     data, parts, futures = {}, [], []
     with _one_blas_thread(), ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        for key, dim in todo:
+        for key, dim, *tol in todo:
             kind = dim <= WARM_DIM
             if kind not in data:
                 data[kind] = dataset(dim, device)
-            part = port_case(key, dim, data[kind], device)
+            part = port_case(key, dim, data[kind], device, *tol)
             parts.append(part)
             futures.append(ex.submit(trajectory, key, dim,
                                      part["states"][0], part["exact"],
@@ -755,7 +774,12 @@ def describe(row: dict) -> str:
 
     n = row["epochs"]
     paths = {k: v for k, v in row["paths"].items() if v}
-    line = (f"{row['key']} dim {row['dim']} (block {row['block']}), "
+    tol = ""
+    if row["dim"] >= WARM_DIM:
+        tol = f"eig_refresh_tol {row['tol']:g}" + (
+            " (the JAX package's)" if row["reading"] else
+            " (the default)") + ", "
+    line = (f"{row['key']} dim {row['dim']} (block {row['block']}), {tol}"
             f"{row['epochs']} epoch(s): max error by epoch "
             f"{err(row['errors'], {0} if row['reading'] else range(n))}"
             f" (bound rtol {RTOL:g}, atol {atol(row['dim']):g})")

@@ -40,7 +40,7 @@ from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
 from safer2_recommender_tpu_torch.utils.device import (DEFAULT_DEVICE,
                                                        f32_matmul,
                                                        matmul_precision)
-from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME
+from safer2_recommender_tpu_torch.utils.logging import LOGGER_NAME, span
 
 _log = logging.getLogger(LOGGER_NAME)
 
@@ -351,7 +351,9 @@ class Recommender:
         """Run ``n`` epochs without the per-epoch log lines."""
         self._note_perms(dd)
         for _ in range(n):
-            self.state = self._epoch(self.state, dd)
+            with span("epoch", self.device, model=self.name,
+                      steps=self.state.steps):
+                self.state = self._epoch(self.state, dd)
 
     @f32_matmul()
     def train_epoch(self, dd: DeviceData) -> None:
@@ -359,7 +361,9 @@ class Recommender:
         if self._stats_order == "pre":
             self._log_train_stats(dd)
         prev = self.state if self.print_residual_stats else None
-        self.state = self._epoch(self.state, dd)
+        with span("epoch", self.device, model=self.name,
+                  steps=self.state.steps):
+            self.state = self._epoch(self.state, dd)
         if self._stats_order == "post":
             self._log_train_stats(dd)
         self._log_epoch_lines()

@@ -41,6 +41,7 @@ from safer2_recommender_tpu_torch.data.dataset import Bucket
 from safer2_recommender_tpu_torch.ops import assemble, solve, woodbury
 from safer2_recommender_tpu_torch.ops.woodbury import SolveParams
 from safer2_recommender_tpu_torch.parallel import mesh as mesh_lib
+from safer2_recommender_tpu_torch.utils.logging import span
 
 
 def share_rows(table: torch.Tensor,
@@ -217,8 +218,9 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
         if eig is None or not woodbury.applicable(b.width, dim):
             direct.append(i)
             continue
-        x = woodbury.solve(params_fn(b, pre_list[i]), *eig)
-        assemble.scatter_bucket(table, b, x)
+        with span("sweep.woodbury"):
+            x = woodbury.solve(params_fn(b, pre_list[i]), *eig)
+            assemble.scatter_bucket(table, b, x)
         paths["woodbury"] += b.n_rows
 
     rotate = eig is not None and not use_cg
@@ -226,30 +228,31 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
         group = [direct[j] for j in group]
         wide = [assemble.is_wide(buckets[i], dim) for i in group]
         g_rot = rotate and not any(wide)
-        a, rhs, ridge = [], [], []
-        for i in group:
-            p = params_fn(buckets[i], pre_list[i])
+        with span("sweep.direct"):
+            a, rhs, ridge = [], [], []
+            for i in group:
+                p = params_fn(buckets[i], pre_list[i])
+                if g_rot:
+                    s = assemble_rotated(p, eig)
+                else:
+                    s = assemble_from_params(p, gram) + (p.c0,)
+                del p
+                a.append(s[0])
+                rhs.append(s[1])
+                ridge.append(s[2])
+            x = solve.solve(torch.cat(a), torch.cat(rhs), use_cg=use_cg,
+                            tol=cg_tol, max_iters=cg_iters,
+                            ridge=torch.cat(ridge))
+            del a, rhs, ridge
             if g_rot:
-                s = assemble_rotated(p, eig)
-            else:
-                s = assemble_from_params(p, gram) + (p.c0,)
-            del p
-            a.append(s[0])
-            rhs.append(s[1])
-            ridge.append(s[2])
-        x = solve.solve(torch.cat(a), torch.cat(rhs), use_cg=use_cg,
-                        tol=cg_tol, max_iters=cg_iters,
-                        ridge=torch.cat(ridge))
-        del a, rhs, ridge
-        if g_rot:
-            x = x @ eig[0].T
-        ofs = 0
-        for i, w in zip(group, wide):
-            b = buckets[i]
-            assemble.scatter_bucket(table, b, x[ofs:ofs + b.n_rows])
-            ofs += b.n_rows
-            paths["rotated" if g_rot else "direct"] += b.n_rows
-            paths["wide"] += b.n_rows if w else 0
+                x = x @ eig[0].T
+            ofs = 0
+            for i, w in zip(group, wide):
+                b = buckets[i]
+                assemble.scatter_bucket(table, b, x[ofs:ofs + b.n_rows])
+                ofs += b.n_rows
+                paths["rotated" if g_rot else "direct"] += b.n_rows
+                paths["wide"] += b.n_rows if w else 0
     return share_rows(table, buckets)
 
 
@@ -528,9 +531,10 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
         return xf
 
     def do_bucket(tbl, b, pre):
-        x = (do_wide(tbl, b) if assemble.is_wide(b, dim)
-             else do_narrow(tbl, b, pre))
-        return assemble.scatter_bucket(tbl, b, x)
+        with span("sweep.block"):
+            x = (do_wide(tbl, b) if assemble.is_wide(b, dim)
+                 else do_narrow(tbl, b, pre))
+            return assemble.scatter_bucket(tbl, b, x)
 
     return share_rows(sweep_apply(buckets, pre_list, table, do_bucket),
                       buckets)

@@ -20,6 +20,7 @@ from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin, _log)
 from safer2_recommender_tpu_torch.ops import quantile, smoothing
 from safer2_recommender_tpu_torch.utils.device import f32_matmul
+from safer2_recommender_tpu_torch.utils.logging import span
 
 
 class SAFER2(SaferFamilyMixin, Recommender):
@@ -36,12 +37,13 @@ class SAFER2(SaferFamilyMixin, Recommender):
         """NR from the warm start: mean loss on the first epoch (the
         reference's Initialize), the carried xi after."""
         cfg = self.cfg
-        warm = loss.mean() if state.steps == 0 else xi
-        return quantile.compute_xi(
-            loss, warm, self.generator, nr_iterations=cfg.xi_iterations,
-            bandwidth=cfg.bandwidth, alpha=cfg.alpha,
-            use_epanechnikov=cfg.use_epanechnikov, use_snr=cfg.use_snr,
-            sampling_ratio=cfg.sampling_ratio)
+        with span("epoch.xi", self.device):
+            warm = loss.mean() if state.steps == 0 else xi
+            return quantile.compute_xi(
+                loss, warm, self.generator, nr_iterations=cfg.xi_iterations,
+                bandwidth=cfg.bandwidth, alpha=cfg.alpha,
+                use_epanechnikov=cfg.use_epanechnikov, use_snr=cfg.use_snr,
+                sampling_ratio=cfg.sampling_ratio)
 
     def _epoch(self, state: MFState, dd: DeviceData) -> MFState:
         """One Train call, phase-shifted so the loss pass shares the
@@ -52,10 +54,10 @@ class SAFER2(SaferFamilyMixin, Recommender):
         Nothing changes (u, v) between one epoch's trailing {loss, xi}
         and the next epoch's leading z, so the same update sequence runs
         as ``pd x {loss, [xi at t=0], z, U, V, gram}`` with the xi warm
-        start selected by ``state.steps``.
+        start selected by ``state.steps``. Each phase is a device-timed
+        span (``utils/logging.py::EPOCH_PHASES``).
         """
-        cfg = self.cfg
-        present = dd.user_hist_size > 0
+        cfg, dev = self.cfg, self.device
         u, v = state.user_emb, state.item_emb
         gram = state.item_gramian
         dual, xi = state.dual_weight, state.xi
@@ -66,23 +68,28 @@ class SAFER2(SaferFamilyMixin, Recommender):
             # carried loss when the pd loop is empty (safer2.h:331-334)
             xi = self._xi(loss, state, xi)
         for t in range(cfg.pd_iterations):
-            loss, pre = common.gather_and_losses(
-                v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,
-                halve=True, dtype=self.asm_dtype)
+            with span("epoch.loss", dev):
+                loss, pre = common.gather_and_losses(
+                    v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,
+                    halve=True, dtype=self.asm_dtype)
             if t == 0:
                 xi = self._xi(loss, state, xi)
-            dual = torch.where(
-                present,
-                smoothing.dual_weight(loss, xi, cfg.bandwidth,
-                                      cfg.use_epanechnikov),
-                dual)
-            u, qn = self._step_u(u, v, gram, dd.by_user, dual,
-                                 pre_list=pre, q_prev=eq_u)
+            with span("epoch.z", dev):
+                dual = torch.where(
+                    dd.user_hist_size > 0,
+                    smoothing.dual_weight(loss, xi, cfg.bandwidth,
+                                          cfg.use_epanechnikov),
+                    dual)
+            with span("epoch.u_sweep", dev):
+                u, qn = self._step_u(u, v, gram, dd.by_user, dual,
+                                     pre_list=pre, q_prev=eq_u)
             eq_u = qn if qn is not None else eq_u
             del pre     # the loss pass's kept slabs: the V sweep frees them
-            v, qn = self._step_v(v, u, dd, dual, q_prev=eq_v)
+            with span("epoch.v_sweep", dev):
+                v, qn = self._step_v(v, u, dd, dual, q_prev=eq_v)
             eq_v = qn if qn is not None else eq_v
-            gram = v.T @ v
+            with span("epoch.gram", dev):
+                gram = v.T @ v
         return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
                              user_loss=loss, dual_weight=dual, xi=xi,
                              steps=state.steps + 1, eig_qu=eq_u,

@@ -34,6 +34,7 @@ from safer2_recommender_tpu_torch.models.ialspp import (
     _warn_interleaved_fallback, fold_in_prep, fold_in_split, interleaved)
 from safer2_recommender_tpu_torch.models.safer2 import SAFER2
 from safer2_recommender_tpu_torch.ops import smoothing, woodbury
+from safer2_recommender_tpu_torch.utils.logging import span
 
 
 class SAFER2pp(SAFER2):
@@ -115,39 +116,45 @@ class SAFER2pp(SAFER2):
             return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
                                  user_loss=loss, dual_weight=dual, xi=xi,
                                  steps=state.steps + 1)
+        dev = self.device
         for t in range(cfg.pd_iterations):
-            loss, pre = common.gather_and_losses(
-                v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,
-                halve=True, dtype=self.asm_dtype)
+            with span("epoch.loss", dev):
+                loss, pre = common.gather_and_losses(
+                    v, dd.by_user, u, gram, dd.num_users, cfg.uobs_weight,
+                    halve=True, dtype=self.asm_dtype)
             if t == 0:
                 xi = self._xi(loss, state, xi)
             # vectorized z-step over the full dual vector
             # (safer2pp.h:839-862)
-            dual = smoothing.dual_weight(loss, xi, cfg.bandwidth,
-                                         cfg.use_epanechnikov)
+            with span("epoch.z", dev):
+                dual = smoothing.dual_weight(loss, xi, cfg.bandwidth,
+                                             cfg.use_epanechnikov)
             # (Q, lam) of each sweep's frozen Gramian: Woodbury-eligible
             # buckets run one full-dim block (block_sweep_frozen)
-            eig_u = woodbury.maybe_eigh(gram, cfg.dim, use_cg=False,
-                                        q_prev=eq_u,
-                                        refresh_tol=cfg.eig_refresh_tol)
-            u = common.block_sweep_frozen(
-                u, v, dd.by_user, gram, self._spec_u(dual),
-                bs=cfg.block_size, dtype=self.asm_dtype, eig=eig_u,
-                pre_list=pre)
+            with span("epoch.u_sweep", dev):
+                eig_u = woodbury.maybe_eigh(gram, cfg.dim, use_cg=False,
+                                            q_prev=eq_u,
+                                            refresh_tol=cfg.eig_refresh_tol)
+                u = common.block_sweep_frozen(
+                    u, v, dd.by_user, gram, self._spec_u(dual),
+                    bs=cfg.block_size, dtype=self.asm_dtype, eig=eig_u,
+                    pre_list=pre)
             del pre
-            # raw-dual-weighted user Gramian: every V block's
-            # G_loc_w / G_lg_w (safer2pp.h:532-544) is a slice of it
-            g_w = u.T @ (u * dual[:, None])
-            eig_v = woodbury.maybe_eigh(g_w, cfg.dim, use_cg=False,
-                                        q_prev=eq_v,
-                                        refresh_tol=cfg.eig_refresh_tol)
-            v = common.block_sweep_frozen(
-                v, u, dd.by_item, g_w, self._spec_v(dd),
-                bs=cfg.block_size, dtype=self.asm_dtype,
-                extra_vec=self._norm_dual(dd, dual), eig=eig_v)
+            with span("epoch.v_sweep", dev):
+                # raw-dual-weighted user Gramian: every V block's
+                # G_loc_w / G_lg_w (safer2pp.h:532-544) is a slice of it
+                g_w = u.T @ (u * dual[:, None])
+                eig_v = woodbury.maybe_eigh(g_w, cfg.dim, use_cg=False,
+                                            q_prev=eq_v,
+                                            refresh_tol=cfg.eig_refresh_tol)
+                v = common.block_sweep_frozen(
+                    v, u, dd.by_item, g_w, self._spec_v(dd),
+                    bs=cfg.block_size, dtype=self.asm_dtype,
+                    extra_vec=self._norm_dual(dd, dual), eig=eig_v)
             if eig_u is not None:
                 eq_u, eq_v = eig_u[0], eig_v[0]
-            gram = v.T @ v
+            with span("epoch.gram", dev):
+                gram = v.T @ v
         return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
                              user_loss=loss, dual_weight=dual, xi=xi,
                              steps=state.steps + 1, eig_qu=eq_u,

@@ -32,6 +32,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from safer2_recommender_tpu_torch.data.dataset import Bucket
+from safer2_recommender_tpu_torch.utils.logging import span
 
 WIDE_SLAB_BYTES = 768 << 20
 WIDE_CHUNK = 4096
@@ -293,14 +294,16 @@ def scatter_bucket(table: torch.Tensor, bucket: Bucket,
                    values: torch.Tensor) -> torch.Tensor:
     """Write solved rows back IN PLACE; pad rows are left untouched
     (contiguous buckets keep the table's values under the [N] mask,
-    others drop pad ids). Returns ``table``."""
+    others drop pad ids, whose positions cost one host read:
+    ``host_sync.scatter``). Returns ``table``."""
     vals = values.to(table.dtype)
     if bucket.contiguous:
         win = _window(bucket, table.shape[0])
         mask = (bucket.length > 0).reshape((-1,) + (1,) * (table.dim() - 1))
         table[win] = torch.where(mask, vals, table[win])
         return table
-    keep = bucket.row_ids < table.shape[0]
+    with span("host_sync.scatter"):
+        keep = torch.nonzero(bucket.row_ids < table.shape[0])[:, 0]
     table[bucket.row_ids[keep]] = vals[keep]
     return table
 

@@ -12,7 +12,8 @@ batched torch products around the kernel on the <= 64 diagonal blocks.
 
 ``chol_inverse_small`` launches the kernel for a CUDA tensor (or
 raises) and runs ``chol_inverse_small_ref``, its plain torch version,
-for a CPU tensor. ``LAUNCHES`` counts kernel launches by block size.
+for a CPU tensor; each call is a ``kernel.chol_inverse`` span (attrs N,
+r). ``LAUNCHES`` counts kernel launches by block size.
 
 Matrix products here run in full float32: PyTorch keeps TF32 off for
 float32 matmuls unless a caller turns it on, and the solver needs the
@@ -28,6 +29,7 @@ from typing import Dict, Optional
 import torch
 
 from safer2_recommender_tpu_torch import native
+from safer2_recommender_tpu_torch.utils.logging import span
 
 KERNEL_SIZES = (8, 16, 32, 64)
 _SMALL_MAX = KERNEL_SIZES[-1]
@@ -129,27 +131,28 @@ def chol_inverse_small(a: torch.Tensor, ridge: torch.Tensor) -> torch.Tensor:
     A CUDA tensor goes through the sm_90a kernel, or this raises; a CPU
     tensor goes through ``chol_inverse_small_ref``."""
     r = _check(a, ridge)
-    if a.device.type == "cpu":
-        return chol_inverse_small_ref(a, ridge)
-    if a.device.type != "cuda":
-        raise ValueError(f"chol_inverse_small: no kernel for {a.device}")
-    lib = build_kernel()
-    out = torch.empty_like(a)
     n = a.shape[0]
-    if n == 0:
+    with span("kernel.chol_inverse", N=n, r=r):
+        if a.device.type == "cpu":
+            return chol_inverse_small_ref(a, ridge)
+        if a.device.type != "cuda":
+            raise ValueError(f"chol_inverse_small: no kernel for {a.device}")
+        lib = build_kernel()
+        out = torch.empty_like(a)
+        if n == 0:
+            return out
+        if a.data_ptr() % 16:
+            a = a.clone()       # the kernel reads rows as float4
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.frt_chol_inverse_f32(a.data_ptr(), ridge.data_ptr(),
+                                           out.data_ptr(), n, r, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"chol_inverse kernel launch failed at [N={n}, r={r}]: "
+                f"cudaError {err}")
+        LAUNCHES[r] += 1
         return out
-    if a.data_ptr() % 16:
-        a = a.clone()       # the kernel reads rows as float4
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.frt_chol_inverse_f32(a.data_ptr(), ridge.data_ptr(),
-                                       out.data_ptr(), n, r, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"chol_inverse kernel launch failed at [N={n}, r={r}]: "
-            f"cudaError {err}")
-    LAUNCHES[r] += 1
-    return out
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,7 @@
 
 The Armijo test uses the gradient at the TRIAL point, as the reference
 does (safer2.h:704). The loops run on the host: each Armijo test reads
-one scalar back from the device.
+one scalar back from the device (``host_sync.armijo``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from safer2_recommender_tpu_torch.ops import smoothing
+from safer2_recommender_tpu_torch.utils.logging import host_read
 
 _ARMIJO_C = 1e-4
 _ARMIJO_MAX_HALVINGS = 32
@@ -55,7 +56,8 @@ def xi_direction(xi: torch.Tensor, losses: torch.Tensor, *,
     def armijo_fails(gamma: float) -> bool:
         x = xi + gamma * (-d)
         fx, gx, _ = evaluate_quantile(x, losses, **kw)
-        return bool(fx > f0 + _ARMIJO_C * gamma * gx * (-d))
+        return host_read("host_sync.armijo",
+                         fx > f0 + _ARMIJO_C * gamma * gx * (-d))
 
     gamma, k = 1.0, 0
     while k < _ARMIJO_MAX_HALVINGS and armijo_fails(gamma):

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from safer2_recommender_tpu_torch.ops.block_chol import spd_solve
+from safer2_recommender_tpu_torch.utils.logging import host_read
 
 # How many CG iterations run between two convergence tests: each test
 # reads the host once.
@@ -44,7 +45,8 @@ def cg_solve(a: torch.Tensor, b: torch.Tensor, *, tol: float = 1e-10,
     r, p, rs = b, b, b_norm2
     test = not _capturing(b)
     for i in range(max_iters):
-        if test and i % CG_CHECK_EVERY == 0 and not bool((rs > thresh).any()):
+        if (test and i % CG_CHECK_EVERY == 0
+                and not host_read("host_sync.cg", (rs > thresh).any())):
             break
         ap = torch.bmm(a, p[:, :, None])[:, :, 0]
         if rg is not None:

@@ -42,6 +42,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from safer2_recommender_tpu_torch.ops import assemble, block_chol
+from safer2_recommender_tpu_torch.utils.logging import host_read, span
 
 # Use Woodbury only when the history width is at most dim/2 (below that
 # the L x L path strictly dominates) and dim is large enough for the
@@ -99,8 +100,9 @@ def sym_eigh(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     the result (~1e-7 and ~1e-6 at every epoch shape on an H100), which
     is also the faster route there at d >= 64 (``probes/eigh.py`` part
     ``route``; PERF.md). The same route on every device; no process-wide
-    setting."""
-    lam, q = torch.linalg.eigh(x.to(torch.float64))
+    setting. eigh's error check reads the device (``host_sync.eigh``)."""
+    with span("host_sync.eigh"):
+        lam, q = torch.linalg.eigh(x.to(torch.float64))
     return lam.to(torch.float32), q.to(torch.float32)
 
 
@@ -125,7 +127,8 @@ def refresh_eigh(gram: torch.Tensor, q_prev: torch.Tensor,
 
     The JAX package chooses the branch on the device (``lax.cond``);
     here the choice is a Python branch on the coupling test, which costs
-    one device-to-host read per call (one per sweep).
+    one device-to-host read per call (one per sweep;
+    ``host_sync.refresh``).
 
     On an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md) the warm
     branch is the dearer one at dim 512: its four float64 [128, 128]
@@ -147,7 +150,7 @@ def refresh_eigh(gram: torch.Tensor, q_prev: torch.Tensor,
     total = torch.linalg.norm(b)
     coupling = torch.sqrt(torch.clamp(
         torch.square(total) - torch.sum(torch.square(diag)), min=0.0))
-    if bool(coupling <= rel_tol * total):
+    if host_read("host_sync.refresh", coupling <= rel_tol * total):
         SOLVE_PATHS["refresh_warm"] += 1
         lam_b, qq = sym_eigh(diag)                            # [k, bs] x2
         # q <- q_prev @ blockdiag(qq): batched [d, bs] x [bs, bs]
@@ -170,12 +173,13 @@ def maybe_eigh(gram: torch.Tensor, dim: int, *, use_cg: bool,
     and ``refresh_tol > 0``, uses the warm-started ``refresh_eigh``."""
     if use_cg or dim < MIN_DIM:
         return None
-    if (q_prev is not None and refresh_tol > 0.0
-            and dim >= _REFRESH_MIN_DIM and dim % _REFRESH_BLOCK == 0):
-        q, lam = refresh_eigh(gram, q_prev, refresh_tol)
-    else:
-        lam, q = sym_eigh(gram)
-    return q, torch.clamp(lam, min=0.0)
+    with span("sweep.eigh"):
+        if (q_prev is not None and refresh_tol > 0.0
+                and dim >= _REFRESH_MIN_DIM and dim % _REFRESH_BLOCK == 0):
+            q, lam = refresh_eigh(gram, q_prev, refresh_tol)
+        else:
+            lam, q = sym_eigh(gram)
+        return q, torch.clamp(lam, min=0.0)
 
 
 def applicable(width: int, dim: int) -> bool:

@@ -15,12 +15,13 @@ and CVaR-MF on it; last SAFER2 on the full synthetic MSD workload
 the MSD config); all at dim 512, seeded:
 
 1. two warm-up epochs;
-2. for SAFER2, the phases of one epoch, each timed from a synchronize to
-   a synchronize on the host clock, three times from the same state
-   (the state is not advanced), with the median printed: the loss pass,
-   the xi line search, the z-step, the U sweep's eigenbasis alone, the
-   U sweep with its eigenbasis, the V sweep with its eigenbasis, the
-   Gramian (the other models' epochs are not cut into phases);
+2. the model's own epoch three times from the same state (the state is
+   not advanced) under ``torch.profiler``, with the median device ms of
+   each of its phase spans and of the whole epoch printed
+   (``utils/logging.py::EPOCH_PHASES``: SAFER2's and SAFER2++'s loss
+   pass, xi line search, z-step, U sweep with its eigenbasis, V sweep
+   with its weighted Gramian and eigenbasis, Gramian; the other models'
+   epochs are not cut into phases);
 3. ``torch.profiler`` over two more epochs: their wall time, the device
    busy time (the union of the device activity intervals, so
    overlapping streams are not counted twice) and its share of the
@@ -55,8 +56,9 @@ from torch.overrides import TorchFunctionMode
 from safer2_recommender_tpu_torch.config import Config
 from safer2_recommender_tpu_torch.data.dataset import Dataset, DeviceData
 from safer2_recommender_tpu_torch.data.synth import powerlaw_dataset
-from safer2_recommender_tpu_torch.models import common, get_model
-from safer2_recommender_tpu_torch.ops import smoothing, woodbury
+from safer2_recommender_tpu_torch.models import get_model
+from safer2_recommender_tpu_torch.utils.logging import (EPOCH_PHASES,
+                                                        clear_spans, spans)
 
 DIM = 512
 # (workload, model) pairs profiled, in order; no flags: edit this list
@@ -106,40 +108,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def phase_ms(model, dd: DeviceData) -> Dict[str, float]:
-    """One epoch's phases (``SAFER2._epoch`` with one pd iteration), each
-    timed from a synchronize to a synchronize; leaves the model's state
-    as it was."""
-    cfg, s, device = model.cfg, model.state, dd.device
-    ms: Dict[str, float] = {}
+def phase_ms(model, dd: DeviceData, runs: int = 3) -> Dict[str, float]:
+    """The model's own epoch, ``runs`` times from the same state (tables
+    and the generator's draws) under ``torch.profiler``: the median ms
+    of each phase span it ran (``EPOCH_PHASES``, in order), then
+    of ``epoch``. On a CUDA device these are the spans' device ms; on
+    the CPU, which finishes each op before the next starts, their host
+    ms. Leaves the model's state as it was."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def timed(name, fn):
-        _sync(device)
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(device)
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    loss, pre = timed("loss", lambda: common.gather_and_losses(
-        s.item_emb, dd.by_user, s.user_emb, s.item_gramian, dd.num_users,
-        cfg.uobs_weight, halve=True, dtype=model.asm_dtype))
-    xi = timed("xi", lambda: model._xi(loss, s, s.xi))
-    dual = timed("z", lambda: torch.where(
-        dd.user_hist_size > 0,
-        smoothing.dual_weight(loss, xi, cfg.bandwidth, cfg.use_epanechnikov),
-        s.dual_weight))
-    timed("eigh_u", lambda: woodbury.maybe_eigh(
-        s.item_gramian, cfg.dim, use_cg=cfg.use_cg, q_prev=s.eig_qu,
-        refresh_tol=cfg.eig_refresh_tol))
-    u, _ = timed("U_incl_eigh", lambda: model._step_u(
-        s.user_emb, s.item_emb, s.item_gramian, dd.by_user, dual,
-        pre_list=pre, q_prev=s.eig_qu))
-    del pre
-    v, _ = timed("V_incl_eigh", lambda: model._step_v(
-        s.item_emb, u, dd, dual, q_prev=s.eig_qv))
-    timed("gram", lambda: v.T @ v)
-    return ms
+    state, draws = model.state, model.generator.get_state()
+    ms = defaultdict(list)
+    try:
+        for _ in range(runs):
+            model.state = state
+            model.generator.set_state(draws)
+            clear_spans()
+            with profile(activities=[ProfilerActivity.CPU]):
+                model.train_epochs(dd, 1)
+            for s in spans():
+                if s.name == "epoch" or s.name in EPOCH_PHASES:
+                    ms[s.name].append(s.device_ms if s.device_ms is not None
+                                      else (s.end - s.start) * 1e3)
+    finally:
+        model.state = state
+        model.generator.set_state(draws)
+        clear_spans()
+    names = [n for n in EPOCH_PHASES if n in ms] + ["epoch"]
+    return {n: statistics.median(ms[n]) for n in names}
 
 
 def busy_ms(intervals: Sequence[Tuple[float, float]]) -> float:
@@ -461,13 +457,10 @@ def run(runs=RUNS) -> Dict[str, dict]:
                           device=device)
         model.initialize(dd)
         model.train_epochs(dd, 2)
-        med = {}
-        if model_name == "safer2":
-            runs = [phase_ms(model, dd) for _ in range(3)]
-            med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-            print(f"[profile {name}] phase ms, median of 3 from one state: "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in med.items()),
-                  flush=True)
+        med = phase_ms(model, dd)
+        print(f"[profile {name}] phase device ms, median of 3 from one "
+              "state: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items()),
+              flush=True)
         wall, busy, ranked, chol = profile_epochs(model, dd)
         print(f"[profile {name}] 2 profiled epochs: wall {wall:.1f} ms, "
               f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "

@@ -43,8 +43,9 @@ def test_phase_ms_times_every_phase_and_leaves_the_state():
     before = model.state
     woodbury.reset_solve_paths()
     ms = epoch_profile.phase_ms(model, dd)
-    assert list(ms) == ["loss", "xi", "z", "eigh_u", "U_incl_eigh",
-                        "V_incl_eigh", "gram"]
+    assert list(ms) == ["epoch.loss", "epoch.xi", "epoch.z",
+                        "epoch.u_sweep", "epoch.v_sweep", "epoch.gram",
+                        "epoch"]
     assert all(math.isfinite(v) and v >= 0 for v in ms.values())
     assert woodbury.SOLVE_PATHS["woodbury"] > 0
     assert model.state is before

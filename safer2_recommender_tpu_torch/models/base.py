@@ -413,8 +413,9 @@ class Recommender:
     def _fold_in_prep(self, state: MFState):
         """The part of the fold-in that depends on the state alone: the
         eigenbasis of the frozen Gramian (``woodbury.maybe_eigh``, whose
-        warm refresh reads the host once) and what else a model solves
-        with. Computed once per state snapshot, outside a CUDA graph."""
+        warm refresh reads the host once), the item table rotated into
+        it, and what else a model solves with. Computed once per state
+        snapshot, outside a CUDA graph."""
         return None
 
     def _fold_in(self, state: MFState, fold: FoldInData,
@@ -648,11 +649,13 @@ class SaferFamilyMixin:
                            torch.zeros_like(dual))
 
     def _step_u(self, ue, item_emb, gramian, buckets, dual, pre_list=None,
-                q_prev=None, eig=None):
+                q_prev=None, eig=None, t_rot=None):
         """Weighted mean-normalized exact U-solves (reference
         safer2.h:104-163 / erm_mf.h:91-151). ``eig`` is the Gramian's
         (Q, lam); None computes it (``woodbury.maybe_eigh``, warm from
-        ``q_prev``). Returns (new table, new eigenbasis or None)."""
+        ``q_prev``). ``t_rot`` is the item table rotated into it, or
+        None (``common.solve_sweep`` rotates it). Returns (new table,
+        new eigenbasis or None)."""
         cfg = self.cfg
         reg = self._user_reg()
         if eig is None:
@@ -661,13 +664,14 @@ class SaferFamilyMixin:
                                       refresh_tol=cfg.eig_refresh_tol)
         item_emb = assemble.cast(item_emb, self.asm_dtype)  # once a sweep
 
-        def params_fn(b, pre=None):
+        def params_fn(b, pre, other):
             w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
             return common.params_weighted_mean(
-                item_emb, b, torch.full((b.n_rows,), reg, device=ue.device),
+                other, b, torch.full((b.n_rows,), reg, device=ue.device),
                 cfg.uobs_weight, w, dtype=self.asm_dtype, pre=pre)
 
-        out = common.solve_sweep(ue, buckets, params_fn, gramian, eig=eig,
+        out = common.solve_sweep(ue, buckets, params_fn, gramian,
+                                 table_other=item_emb, eig=eig, t_rot=t_rot,
                                  use_cg=cfg.use_cg,
                                  cg_tol=cfg.cg_error_tolerance,
                                  cg_iters=cfg.cg_max_iterations,
@@ -687,25 +691,28 @@ class SaferFamilyMixin:
                                   refresh_tol=cfg.eig_refresh_tol)
         user_emb = assemble.cast(user_emb, self.asm_dtype)  # once a sweep
 
-        def params_fn(b, pre=None):
+        def params_fn(b, pre, other):
             reg = self._item_reg(dd.item_reg, b.row_ids)
             return common.params_weighted_item(
-                user_emb, b, reg, cfg.uobs_weight, norm_dual,
+                other, b, reg, cfg.uobs_weight, norm_dual,
                 dtype=self.asm_dtype)
 
-        out = common.solve_sweep(v, dd.by_item, params_fn, w_gram, eig=eig,
+        out = common.solve_sweep(v, dd.by_item, params_fn, w_gram,
+                                 table_other=user_emb, eig=eig,
                                  use_cg=cfg.use_cg,
                                  cg_tol=cfg.cg_error_tolerance,
                                  cg_iters=cfg.cg_max_iterations)
         return out, (eig[0] if eig is not None else None)
 
     def _fold_in_prep(self, state: MFState):
-        """(Q, lam) of the frozen item Gramian, warm from the carried
-        basis, or None on the direct path."""
+        """``(eig, t_rot)``: (Q, lam) of the frozen item Gramian, warm
+        from the carried basis, or None on the direct path, and the item
+        table rotated into it (``common.rotated_items``)."""
         cfg = self.cfg
-        return woodbury.maybe_eigh(state.item_gramian, cfg.dim,
-                                   use_cg=cfg.use_cg, q_prev=state.eig_qu,
-                                   refresh_tol=cfg.eig_refresh_tol)
+        eig = woodbury.maybe_eigh(state.item_gramian, cfg.dim,
+                                  use_cg=cfg.use_cg, q_prev=state.eig_qu,
+                                  refresh_tol=cfg.eig_refresh_tol)
+        return eig, common.rotated_items(eig, state.item_emb, self.asm_dtype)
 
     def _fold_in(self, state: MFState, fold: FoldInData,
                  prep=None) -> torch.Tensor:
@@ -713,7 +720,6 @@ class SaferFamilyMixin:
         erm_mf.h:234-244)."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
         ones = torch.ones((fold.n_pad,), device=self.device)
-        if prep is None:
-            prep = self._fold_in_prep(state)
+        eig, t_rot = self._fold_in_prep(state) if prep is None else prep
         return self._step_u(ue, state.item_emb, state.item_gramian,
-                            fold.by_user, ones, eig=prep)[0]
+                            fold.by_user, ones, eig=eig, t_rot=t_rot)[0]

@@ -116,6 +116,24 @@ def _direct_groups(buckets: Sequence[Bucket], dim: int) -> List[List[int]]:
                     _solve_groups([buckets[i] for i in singles], dim)]
 
 
+def rotate_table(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``table @ q`` in the table's dtype (``assemble.matmul_lowp``): row
+    for row the product a gathered slab of it would take, so a slab
+    gathered from the result is the rotated slab."""
+    with span("sweep.rotate_table", rows=table.shape[0]):
+        return assemble.matmul_lowp(table, q)
+
+
+def rotated_items(eig, item_emb: torch.Tensor,
+                  dtype) -> Optional[torch.Tensor]:
+    """A fold-in's frozen item table cast to ``dtype`` and rotated into
+    ``eig``'s basis (``rotate_table``), or None without ``eig``: state
+    alone, so computed once a state (``Recommender._fold_in_prep``)."""
+    if eig is None:
+        return None
+    return rotate_table(assemble.cast(item_emb, dtype), eig[0])
+
+
 def assemble_rotated(p: SolveParams, eig) -> Tuple[torch.Tensor,
                                                    torch.Tensor,
                                                    torch.Tensor]:
@@ -129,14 +147,22 @@ def assemble_rotated(p: SolveParams, eig) -> Tuple[torch.Tensor,
 
     so it rides the solver's lazy diagonal shift as a [N, d] ridge
     instead of a broadcast add over the [N, d, d] systems. Solve the
-    rotated system, then rotate the solution back: x = y @ Q^T.
+    rotated system, then rotate the solution back: x = y @ Q^T. Here
+    from the plain slab, rotated in its dtype; the sweeps gather E_rot
+    from the rotated table and call ``assemble_in_basis``.
 
     Returns (a_rot, rhs_rot, ridge [N, d]).
     """
     q, lam = eig
-    emb_rot = assemble.matmul_lowp(p.emb, q)   # in the slab's dtype
-    a = assemble.row_gramians(emb_rot, col_weight=p.wt)
-    rhs = assemble.row_sums(emb_rot, col_weight=p.r)
+    return assemble_in_basis(
+        p._replace(emb=assemble.matmul_lowp(p.emb, q)), lam)
+
+
+def assemble_in_basis(p: SolveParams, lam: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``assemble_rotated`` with ``p.emb`` = E_rot already."""
+    a = assemble.row_gramians(p.emb, col_weight=p.wt)
+    rhs = assemble.row_sums(p.emb, col_weight=p.r)
     ridge = p.c0[:, None] + p.c1[:, None] * lam[None, :]
     return a, rhs, ridge
 
@@ -183,26 +209,33 @@ def grad_from_params(p: SolveParams, gram: torch.Tensor,
 
 
 def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
-                gram: torch.Tensor, *, eig=None, use_cg: bool = False,
+                gram: torch.Tensor, *, table_other: torch.Tensor, eig=None,
+                t_rot: Optional[torch.Tensor] = None, use_cg: bool = False,
                 cg_tol: float = 1e-10, cg_iters: int = 100,
                 pre_list=None) -> torch.Tensor:
     """One full ALS sweep over all buckets; returns a NEW table (the
     input is copied once, then updated in place bucket by bucket).
 
-    ``params_fn(bucket, pre=None) -> SolveParams``; ``pre`` is the
-    bucket's pre-gathered ``(emb, mask)`` from ``gather_and_losses``
-    (one entry per bucket, or None), so the loss pass and the U-sweep
-    share one gather of the frozen table.
+    ``params_fn(bucket, pre, other) -> SolveParams`` gathers the
+    bucket's history from ``other``: ``table_other``, the frozen table
+    in the assembly dtype, or its rotation ``t_rot`` for the buckets
+    solved in the eigenbasis. ``pre`` is the bucket's pre-gathered
+    ``(emb, mask)`` from ``gather_and_losses`` (one entry per bucket,
+    or None), so the loss pass and the U-sweep share one gather of the
+    frozen table where the slab is solved as gathered.
 
     With ``eig`` (the shared Gramian's eigendecomposition), buckets whose
     history width is at most dim/2 take the Woodbury path (an L x L
     solve per row), and the direct d x d systems are assembled and
     solved in the eigenbasis, except in a batch that holds a wide
-    bucket (``_direct_groups``). Without it every bucket is solved
-    directly. ``use_cg`` solves the direct systems by batched conjugate
-    gradient (``solve.cg_solve`` with ``cg_tol`` / ``cg_iters``), never
-    rotated. ``woodbury.SOLVE_PATHS`` counts the rows of each path. On a
-    mesh the ranks' rows are shared at the end (``share_rows``)."""
+    bucket (``_direct_groups``). Those buckets gather their slabs
+    already rotated from ``t_rot = rotate_table(table_other, Q)``
+    (None rotates it here, once a sweep). Without ``eig`` every bucket
+    is solved directly. ``use_cg`` solves the direct systems by batched
+    conjugate gradient (``solve.cg_solve`` with ``cg_tol`` /
+    ``cg_iters``), never rotated. ``woodbury.SOLVE_PATHS`` counts the
+    rows of each path. On a mesh the ranks' rows are shared at the end
+    (``share_rows``)."""
     table = table.clone()
     if not buckets:
         return table
@@ -213,27 +246,38 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
                          f"{len(buckets)} buckets")
     dim = table.shape[1]
     paths = woodbury.SOLVE_PATHS
-    direct = []
+    wood = [eig is not None and woodbury.applicable(b.width, dim)
+            for b in buckets]
+    direct = [i for i, w in enumerate(wood) if not w]
+    rotate = eig is not None and not use_cg
+    groups = [[direct[j] for j in g]
+              for g in _direct_groups([buckets[i] for i in direct], dim)]
+    g_rots = [rotate and not any(assemble.is_wide(buckets[i], dim)
+                                 for i in g) for g in groups]
+    if t_rot is None and (any(wood) or any(g_rots)):
+        t_rot = rotate_table(table_other, eig[0])
+
+    def params(i: int, in_basis: bool) -> SolveParams:
+        if in_basis:
+            paths["table_rotated"] += buckets[i].n_rows
+            return params_fn(buckets[i], None, t_rot)
+        return params_fn(buckets[i], pre_list[i], table_other)
+
     for i, b in enumerate(buckets):
-        if eig is None or not woodbury.applicable(b.width, dim):
-            direct.append(i)
+        if not wood[i]:
             continue
         with span("sweep.woodbury"):
-            x = woodbury.solve(params_fn(b, pre_list[i]), *eig)
+            x = woodbury.solve_in_basis(params(i, True), *eig)
             assemble.scatter_bucket(table, b, x)
         paths["woodbury"] += b.n_rows
 
-    rotate = eig is not None and not use_cg
-    for group in _direct_groups([buckets[i] for i in direct], dim):
-        group = [direct[j] for j in group]
-        wide = [assemble.is_wide(buckets[i], dim) for i in group]
-        g_rot = rotate and not any(wide)
+    for group, g_rot in zip(groups, g_rots):
         with span("sweep.direct"):
             a, rhs, ridge = [], [], []
             for i in group:
-                p = params_fn(buckets[i], pre_list[i])
+                p = params(i, g_rot)
                 if g_rot:
-                    s = assemble_rotated(p, eig)
+                    s = assemble_in_basis(p, eig[1])
                 else:
                     s = assemble_from_params(p, gram) + (p.c0,)
                 del p
@@ -247,12 +291,12 @@ def solve_sweep(table: torch.Tensor, buckets: Sequence[Bucket], params_fn,
             if g_rot:
                 x = x @ eig[0].T
             ofs = 0
-            for i, w in zip(group, wide):
+            for i in group:
                 b = buckets[i]
                 assemble.scatter_bucket(table, b, x[ofs:ofs + b.n_rows])
                 ofs += b.n_rows
                 paths["rotated" if g_rot else "direct"] += b.n_rows
-                paths["wide"] += b.n_rows if w else 0
+                paths["wide"] += b.n_rows if assemble.is_wide(b, dim) else 0
     return share_rows(table, buckets)
 
 
@@ -377,7 +421,8 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
                        buckets: Sequence[Bucket], gram: torch.Tensor,
                        spec_fn, *, bs: int, n_sweeps: int = 1, dtype=None,
                        extra_vec: Optional[torch.Tensor] = None, eig=None,
-                       block_eig=None, pre_list=None) -> torch.Tensor:
+                       block_eig=None, pre_list=None,
+                       t_rot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Blockwise coordinate sweep(s) of one side against the FROZEN other
     side, the ++ models' hot loop; returns a NEW table.
 
@@ -410,7 +455,15 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
         the full-dim Woodbury (``woodbury.solve_rhs``): the full-dim
         delta solve is the direct normal-equation solve (rhs = A x - b,
         so x - A^-1 rhs = A^-1 b), exact in one sweep, so further sweeps
-        against the same frozen side would change nothing;
+        against the same frozen side would change nothing. These
+        buckets gather their slabs already rotated from ``t_rot =
+        rotate_table(table_other, Q)`` (None rotates it here, once a
+        sweep), and a float32 rhs is summed from them, the slab K is
+        built from (a plain sum, rotated, differs from it by rounding
+        that the solve amplifies where the Gramian lacks rank); a
+        bfloat16 rhs is summed from the bfloat16 slab and rotated in
+        float32, as the JAX package does, since a rotated bfloat16 row
+        is rounded once more;
       * otherwise ``n_sweeps`` passes over the bs-blocks (the last block
         is narrower when ``dim % bs != 0``). Without ``eig``, with
         ``dim % bs == 0`` and ``bs >= 16``, a bucket with
@@ -442,13 +495,43 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
     if wood:
         lam_all, q_all = (block_eig if block_eig is not None
                           else block_eigh(gram, bs))
+    if t_rot is None and q_full is not None and any(
+            woodbury.applicable(b.width, dim) for b in buckets):
+        t_rot = rotate_table(table_other, q_full)
 
     def run_blocks(blk) -> None:
         for _ in range(n_sweeps):
             for s in range(0, dim, bs):
                 blk(s, min(s + bs, dim))
 
+    def do_full_woodbury(b: Bucket, pre, spec: BlockSpec) -> torch.Tensor:
+        wt = (assemble.history_mask(b) if extra_vec is None else
+              assemble.history_extra(extra_vec, b, table_other.dtype))
+
+        def rhs_of(slab):
+            rhs = assemble.row_sums(slab, col_weight=wt)
+            return rhs if spec.ch is None else rhs * spec.ch[:, None]
+
+        # the rotated slab, unmasked: it enters only through the
+        # weights, 0 on padded slots
+        w = t_rot[b.col_ids]
+        if w.dtype == torch.float32:
+            b_rot = rhs_of(w)
+        else:
+            b_rot = rhs_of(pre[0] if pre is not None else
+                           assemble.gather_history(table_other, b)[0]
+                           ) @ q_full
+        if spec.ch is not None:
+            wt = wt * spec.ch[:, None]
+        paths["woodbury"] += b.n_rows
+        paths["table_rotated"] += b.n_rows
+        return woodbury.solve_rhs_in_basis(w, wt, spec.reg, spec.cg, b_rot,
+                                           q_full, lam_full)
+
     def do_narrow(tbl, b: Bucket, pre) -> torch.Tensor:
+        spec = spec_fn(b)
+        if q_full is not None and woodbury.applicable(b.width, dim):
+            return do_full_woodbury(b, pre, spec)
         if pre is not None:
             emb, mask, wt = pre[0], pre[1], None
         elif extra_vec is None:
@@ -457,19 +540,9 @@ def block_sweep_frozen(table_self: torch.Tensor, table_other: torch.Tensor,
         else:
             emb, mask, wt = assemble.gather_history_extra(table_other,
                                                           extra_vec, b)
-        spec = spec_fn(b)
         wt_eff = mask if wt is None else wt
         if spec.ch is not None:
             wt_eff = wt_eff * spec.ch[:, None]
-
-        if q_full is not None and woodbury.applicable(b.width, dim):
-            rhs = assemble.row_sums(emb, col_weight=mask if wt is None
-                                    else wt)
-            if spec.ch is not None:
-                rhs = rhs * spec.ch[:, None]
-            paths["woodbury"] += b.n_rows
-            return woodbury.solve_rhs(emb, wt_eff, spec.reg, spec.cg, rhs,
-                                      q_full, lam_full)
 
         xf = assemble.read_rows(tbl, b).clone()
         pred = assemble.rowwise_dot(emb, xf)

@@ -107,10 +107,12 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         self._init_losses(dd)
 
     def _fold_in_prep(self, state: MFState):
-        """(Q, lam) of the item Gramian by a full eigh (no warm basis:
-        training never solves exactly), or None on the direct path."""
-        return woodbury.maybe_eigh(state.item_gramian, self.cfg.dim,
-                                   use_cg=False)
+        """``(eig, t_rot)``: (Q, lam) of the item Gramian by a full eigh
+        (no warm basis: training never solves exactly), or None on the
+        direct path, and the item table rotated into it."""
+        eig = woodbury.maybe_eigh(state.item_gramian, self.cfg.dim,
+                                  use_cg=False)
+        return eig, common.rotated_items(eig, state.item_emb, self.asm_dtype)
 
     def _fold_in_split(self):
         """As the base class's, but ``use_cg`` does not apply: this
@@ -126,15 +128,16 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         cfg = self.cfg
         ue = torch.zeros((fold.n_pad, cfg.dim), device=self.device)
         reg = self._user_reg()
-        eig = self._fold_in_prep(state) if prep is None else prep
+        eig, t_rot = self._fold_in_prep(state) if prep is None else prep
         item_emb = assemble.cast(state.item_emb, self.asm_dtype)
 
-        def params_fn(b, pre=None):
+        def params_fn(b, pre, other):
             return common.params_weighted_mean(
-                item_emb, b,
+                other, b,
                 torch.full((b.n_rows,), reg, device=self.device),
                 cfg.uobs_weight, torch.ones((b.n_rows,), device=self.device),
                 dtype=self.asm_dtype)
 
         return common.solve_sweep(ue, fold.by_user, params_fn,
-                                  state.item_gramian, eig=eig)
+                                  state.item_gramian, table_other=item_emb,
+                                  eig=eig, t_rot=t_rot)

@@ -37,9 +37,11 @@ class IALS(Recommender):
         return ials_reg_vectors(self.cfg, dd)
 
     def _sweep(self, table_self, table_other, buckets, num_choices,
-               gram=None, pre_list=None, q_prev=None, eig=None):
+               gram=None, pre_list=None, q_prev=None, eig=None, t_rot=None):
         """Returns (new table, new eigenbasis or None). ``eig`` is the
-        Gramian's (Q, lam); None computes it, warm from ``q_prev``."""
+        Gramian's (Q, lam); None computes it, warm from ``q_prev``.
+        ``t_rot`` is ``table_other`` rotated into it, or None
+        (``common.solve_sweep`` rotates it)."""
         cfg = self.cfg
         if gram is None:
             gram = table_other.T @ table_other
@@ -49,14 +51,15 @@ class IALS(Recommender):
                                       refresh_tol=cfg.eig_refresh_tol)
         table_other = assemble.cast(table_other, self.asm_dtype)
 
-        def params_fn(b, pre=None):
+        def params_fn(b, pre, other):
             reg = common.ials_reg(b.length, num_choices, cfg.l2_reg,
                                   cfg.l2_reg_exp, cfg.uobs_weight)
-            return common.params_ials(table_other, b, reg, cfg.uobs_weight,
+            return common.params_ials(other, b, reg, cfg.uobs_weight,
                                       dtype=self.asm_dtype, pre=pre)
 
         out = common.solve_sweep(table_self, buckets, params_fn, gram,
-                                 eig=eig, use_cg=cfg.use_cg,
+                                 table_other=table_other, eig=eig,
+                                 t_rot=t_rot, use_cg=cfg.use_cg,
                                  cg_tol=cfg.cg_error_tolerance,
                                  cg_iters=cfg.cg_max_iterations,
                                  pre_list=pre_list)
@@ -87,17 +90,17 @@ class IALS(Recommender):
 
     def _fold_in_prep(self, state: MFState):
         cfg = self.cfg
-        return woodbury.maybe_eigh(state.item_gramian, cfg.dim,
-                                   use_cg=cfg.use_cg, q_prev=state.eig_qu,
-                                   refresh_tol=cfg.eig_refresh_tol)
+        eig = woodbury.maybe_eigh(state.item_gramian, cfg.dim,
+                                  use_cg=cfg.use_cg, q_prev=state.eig_qu,
+                                  refresh_tol=cfg.eig_refresh_tol)
+        return eig, common.rotated_items(eig, state.item_emb, self.asm_dtype)
 
     def _fold_in(self, state: MFState, fold: FoldInData,
                  prep=None) -> torch.Tensor:
         """One exact re-projection of the held-out users
         (reference ials.h:169-174)."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
-        if prep is None:
-            prep = self._fold_in_prep(state)
+        eig, t_rot = self._fold_in_prep(state) if prep is None else prep
         return self._sweep(ue, state.item_emb, fold.by_user,
                            self.num_items, gram=state.item_gramian,
-                           eig=prep)[0]
+                           eig=eig, t_rot=t_rot)[0]

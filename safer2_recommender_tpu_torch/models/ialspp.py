@@ -54,13 +54,16 @@ def _warn_interleaved_fallback(model) -> None:
 
 
 def fold_in_prep(model, state: MFState):
-    """The state-only part of the ++ models' fold-in: ``(eig, block_eig)``.
+    """The state-only part of the ++ models' fold-in: ``(eig, block_eig,
+    t_rot)``.
 
     ``eig`` is (Q, lam) of the item Gramian, or None: the fold-in follows
     the training mode, blockwise sweeps under ``block_interleaved``,
     collapsed to one exact solve (the full-dim Woodbury) by default.
     ``block_eig`` is the diagonal blocks' eigendecomposition for the
-    block-level Woodbury (``common.block_eigh``) where it can engage."""
+    block-level Woodbury (``common.block_eigh``) where it can engage.
+    ``t_rot`` is the item table rotated into ``eig``
+    (``common.rotated_items``), or None."""
     cfg = model.cfg
     eig = None
     if not cfg.block_interleaved:
@@ -71,7 +74,8 @@ def fold_in_prep(model, state: MFState):
     if eig is None and cfg.dim % cfg.block_size == 0 \
             and cfg.block_size >= 16:
         block_eig = common.block_eigh(state.item_gramian, cfg.block_size)
-    return eig, block_eig
+    return eig, block_eig, common.rotated_items(eig, state.item_emb,
+                                                model.asm_dtype)
 
 
 def fold_in_split(model):
@@ -180,9 +184,9 @@ class IALSpp(Recommender):
         ialspp.h:149-206); the item table is frozen throughout, so one
         slab gather per bucket serves every block solve of every sweep."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
-        eig, block_eig = prep or fold_in_prep(self, state)
+        eig, block_eig, t_rot = prep or fold_in_prep(self, state)
         return common.block_sweep_frozen(
             ue, state.item_emb, fold.by_user, state.item_gramian,
             self._spec_fn(self.num_items), bs=self.cfg.block_size,
             n_sweeps=self.cfg.eval_fold_in_epochs, dtype=self.asm_dtype,
-            eig=eig, block_eig=block_eig)
+            eig=eig, block_eig=block_eig, t_rot=t_rot)

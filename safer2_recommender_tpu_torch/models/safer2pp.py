@@ -173,9 +173,9 @@ class SAFER2pp(SAFER2):
         slab gather per bucket serves every sweep."""
         ue = torch.zeros((fold.n_pad, self.cfg.dim), device=self.device)
         ones = torch.ones((fold.n_pad,), device=self.device)
-        eig, block_eig = prep or fold_in_prep(self, state)
+        eig, block_eig, t_rot = prep or fold_in_prep(self, state)
         return common.block_sweep_frozen(
             ue, state.item_emb, fold.by_user, state.item_gramian,
             self._spec_u(ones), bs=self.cfg.block_size,
             n_sweeps=self.cfg.eval_fold_in_epochs, dtype=self.asm_dtype,
-            eig=eig, block_eig=block_eig)
+            eig=eig, block_eig=block_eig, t_rot=t_rot)

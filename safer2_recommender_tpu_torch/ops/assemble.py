@@ -80,8 +80,16 @@ def gather_history_extra(table: torch.Tensor, vec: torch.Tensor,
     mask = history_mask(bucket)
     table = cast(table, dtype)
     emb = table[bucket.col_ids] * mask[..., None].to(table.dtype)
-    extra = vec[bucket.col_ids].to(table.dtype).to(torch.float32) * mask
-    return emb, mask, extra
+    return emb, mask, history_extra(vec, bucket, table.dtype, mask)
+
+
+def history_extra(vec: torch.Tensor, bucket: Bucket, dtype,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``gather_history_extra``'s per-slot scalar alone: [N, L] f32,
+    masked, ``vec[col_ids]`` rounded to ``dtype``."""
+    if mask is None:
+        mask = history_mask(bucket)
+    return vec[bucket.col_ids].to(dtype).to(torch.float32) * mask
 
 
 def gram_route(device) -> str:

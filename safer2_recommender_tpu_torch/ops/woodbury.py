@@ -15,18 +15,25 @@ shrinks the per-row solve to L x L:
     A_u      = M_u + Vt_u^T Vt_u,  Vt_u = diag(sqrt(wt_u)) Vh_u
     A_u^-1 b = M^-1 b - M^-1 Vt^T (I_L + Vt M^-1 Vt^T)^-1 Vt M^-1 b
 
-The heavy work is one [N*L, d] x [d, d] product into the eigenbasis and
-a batched L x L SPD solve (``block_chol.spd_solve``, so the hand-written
-kernel). Every float32 product here runs in full float32 (the entry
-points keep TF32 off). A bfloat16 history slab (``compute_dtype="bf16"``)
-is rotated into a bfloat16 ``w``, as in the JAX package; the capacitance
+The heavy work is the slab in the eigenbasis and a batched L x L SPD
+solve (``block_chol.spd_solve``, so the hand-written kernel). The sweeps
+gather that slab from the frozen table rotated once
+(``models/common.py::rotate_table``) and call the ``*_in_basis`` forms;
+``solve`` and ``solve_rhs`` take the plain slab and rotate it first, as
+the JAX package does (one [N*L, d] x [d, d] product; the block-level
+Woodbury's bases are per block, so it rotates its slices so). Every
+float32 product here runs in full float32 (the entry points keep TF32
+off). A bfloat16 history slab (``compute_dtype="bf16"``) is rotated
+into a bfloat16 ``w``, as in the JAX package; the capacitance
 ``K = ws ws^T`` multiplies ``ws`` rounded to bfloat16 and accumulates in
 float32, every system the solver sees is float32, and the products of
 ``ws`` or ``w`` with float32 vectors run in float32 (the JAX package's
 bfloat16 x float32 multiply-and-sum promotes to float32).
 
 ``SOLVE_PATHS`` counts, per path, the padded bucket rows each sweep
-solved (``woodbury``, ``rotated``, ``direct``; ``block`` and
+solved (``woodbury``, ``rotated``, ``direct``; ``table_rotated`` the
+rows among the Woodbury and rotated ones whose slab was gathered from
+the rotated frozen table, which is all of them; ``block`` and
 ``block_woodbury`` are the blockwise sweeps' rows, solved block by block
 directly or through the block-level Woodbury; ``wide`` counts the rows,
 among the direct, block and gradient-step ones, whose histories
@@ -50,8 +57,8 @@ from safer2_recommender_tpu_torch.utils.logging import host_read, span
 MIN_DIM = 128
 
 SOLVE_PATHS: Dict[str, int] = dict.fromkeys(
-    ("woodbury", "rotated", "direct", "block", "block_woodbury", "wide",
-     "refresh_warm", "refresh_cold"), 0)
+    ("woodbury", "rotated", "direct", "table_rotated", "block",
+     "block_woodbury", "wide", "refresh_warm", "refresh_cold"), 0)
 
 
 def reset_solve_paths() -> None:
@@ -188,15 +195,23 @@ def applicable(width: int, dim: int) -> bool:
 
 def _prep(emb: torch.Tensor, wt: torch.Tensor, c0: torch.Tensor,
           c1: torch.Tensor, q: torch.Tensor, lam: torch.Tensor):
-    """Shared Woodbury ingredients: rotated history ``w`` [N, L, d] in the
-    slab's dtype, rotated-basis M^-1 diagonal ``s`` [N, d], its square
-    root ``rs``, the f32 weighted slab ``ws = diag(sqrt(wt)) W diag(rs)``
-    (the weights rounded to the slab's dtype first) and the f32 L x L
-    capacitance ``K = ws ws^T`` from ``ws`` in the slab's dtype (its +I_L
-    rides the solver's ridge). XLA computes the JAX package's
-    ``_prep``/``_finish`` so on the CPU; the port does it on every
-    device."""
-    w = assemble.matmul_lowp(emb, q)                          # [N, L, d]
+    """``_prep_in_basis`` of the plain slab ``emb`` rotated into the
+    eigenbasis (``w = emb Q`` in the slab's dtype)."""
+    return _prep_in_basis(assemble.matmul_lowp(emb, q), wt, c0, c1, lam)
+
+
+def _prep_in_basis(w: torch.Tensor, wt: torch.Tensor, c0: torch.Tensor,
+                   c1: torch.Tensor, lam: torch.Tensor):
+    """Shared Woodbury ingredients from the history ``w`` [N, L, d] in
+    the eigenbasis, in the slab's dtype: ``w`` itself, the rotated-basis
+    M^-1 diagonal ``s`` [N, d], its square root ``rs``, the f32
+    weighted slab ``ws = diag(sqrt(wt)) W diag(rs)`` (the weights
+    rounded to the slab's dtype first) and the f32 L x L capacitance
+    ``K = ws ws^T`` from ``ws`` in the slab's dtype (its +I_L rides the
+    solver's ridge). ``w`` enters only through ``ws``, so its padded
+    slots may hold any finite rows (``wt`` is 0 there). XLA computes
+    the JAX package's ``_prep``/``_finish`` so on the CPU; the port
+    does it on every device."""
     s = 1.0 / (c1[:, None] * lam[None, :] + c0[:, None])      # [N, d]
     rs = torch.sqrt(s)
     # the weights rounded to the slab's dtype, their product with w exact
@@ -224,8 +239,16 @@ def _finish(z: torch.Tensor, s: torch.Tensor, rs: torch.Tensor,
 
 
 def solve(p: SolveParams, q: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    """Batched Woodbury solve of A x = Vh^T r -> new rows [N, d]."""
-    w, s, rs, ws, k = _prep(p.emb, p.wt, p.c0, p.c1, q, lam)
+    """Batched Woodbury solve of A x = Vh^T r -> new rows [N, d], from
+    the plain slab ``p.emb`` = Vh."""
+    return solve_in_basis(p._replace(emb=assemble.matmul_lowp(p.emb, q)),
+                          q, lam)
+
+
+def solve_in_basis(p: SolveParams, q: torch.Tensor,
+                   lam: torch.Tensor) -> torch.Tensor:
+    """``solve`` with ``p.emb`` already in the eigenbasis (Vh Q)."""
+    w, s, rs, ws, k = _prep_in_basis(p.emb, p.wt, p.c0, p.c1, lam)
     # Q^T Vh^T r
     rv = torch.bmm(p.r[:, None, :], w.to(torch.float32))[:, 0, :]
     del w
@@ -240,6 +263,14 @@ def solve_rhs(emb: torch.Tensor, wt: torch.Tensor, c0: torch.Tensor,
     local-global-Gramian and regularizer pull-back terms; see
     ``models/common.py::block_sweep_frozen``). Same A as ``solve``:
     A = c0 I + c1 G + emb^T diag(wt) emb with G = Q diag(lam) Q^T."""
-    w, s, rs, ws, k = _prep(emb, wt, c0, c1, q, lam)
-    del w
-    return _finish(s * (b @ q), s, rs, ws, k, q)
+    return solve_rhs_in_basis(assemble.matmul_lowp(emb, q), wt, c0, c1,
+                              b @ q, q, lam)
+
+
+def solve_rhs_in_basis(w: torch.Tensor, wt: torch.Tensor, c0: torch.Tensor,
+                       c1: torch.Tensor, b_rot: torch.Tensor,
+                       q: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """``solve_rhs`` with the slab ``w`` = emb Q and the rhs
+    ``b_rot`` = b Q both in the eigenbasis."""
+    _, s, rs, ws, k = _prep_in_basis(w, wt, c0, c1, lam)
+    return _finish(s * b_rot, s, rs, ws, k, q)

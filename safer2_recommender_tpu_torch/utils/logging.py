@@ -20,6 +20,9 @@ fixed strings:
     .u_sweep / .v_sweep /     order (``EPOCH_PHASES``); device-timed
     .gram
       sweep.eigh              ``woodbury.maybe_eigh``
+      sweep.rotate_table      the frozen table's one rotation into the
+                              eigenbasis (``models/common.py::
+                              rotate_table``); attrs ``rows``
       sweep.woodbury          a bucket of ``solve_sweep``'s Woodbury loop
       sweep.direct            a solve group of ``solve_sweep``
       sweep.block             a bucket of ``block_sweep_frozen``

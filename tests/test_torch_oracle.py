@@ -11,14 +11,17 @@ basis is the identity). The bound is the oracles' own: rtol 2e-4, atol
 
 At the default the port's second epoch at 256 (SAFER2, iALS, iALS++) is
 held to the oracle too. At 0.08 it takes the warm refresh, which drops
-up to 8% of the rotated Gramian's norm, and iALS's and iALS++'s warm
-epochs miss the bound in both packages: there it is held to the JAX
+up to 8% of the rotated Gramian's norm: iALS's warm epoch lands near
+the bound, and iALS++'s errs over ten times as much as its default
+epoch (it misses the bound in the JAX package; the port's full-dim
+Woodbury sums its rhs from the rotated slab, so its ++ epochs are
+several times closer to the oracle). There it is held to the JAX
 package's warm epoch from the same carried bases, which it matches
 within the oracle's bound, miss for miss. The fold-in's eigenbasis
 (``_fold_in_prep``) at the default is an exact eigendecomposition of
-the frozen item Gramian, where the warm one from a stale carried basis
-is not. Also the probe's row checks, its refusal of the CPU and the
-dim-512 data's routes."""
+the frozen item Gramian, within 1e-6, where the warm one from a stale
+carried basis is not. Also the probe's row checks, its refusal of the
+CPU and the dim-512 data's routes."""
 
 import dataclasses
 
@@ -154,7 +157,8 @@ def test_default_second_epoch_at_256_is_held_to_the_oracle(small, key):
     # at the default eig_refresh_tol the second epoch's eigenbases are
     # full eighs: held to the oracle's bound, no warm refresh; at the JAX
     # package's 0.08 the same epoch takes the warm refresh, a reading,
-    # and iALS++'s misses the bound there (the bound can see it)
+    # and iALS++'s errs there over ten times as much as at the default
+    # (the oracle can see it)
     _, _, ds, dd, _ = small
     rows = {}
     for tol in (None, JAX_EIG_REFRESH_TOL):
@@ -172,7 +176,7 @@ def test_default_second_epoch_at_256_is_held_to_the_oracle(small, key):
     assert warm["reading"] and oracle.row_ok(warm), oracle.describe(warm)
     assert warm["errors"][1]["warm"] and warm["paths"]["refresh_warm"] == 2
     if key == "ialspp":
-        assert not warm["errors"][1]["ok"]
+        assert warm["errors"][1]["abs"] > 10 * row["errors"][1]["abs"]
 
 
 @pytest.fixture(scope="module")
@@ -200,10 +204,10 @@ def _fold_in_eig(key, model, state):
     ``ialspp.fold_in_prep`` for iALS++ (no block eigenbasis beside a
     full-dim one)."""
     if key == "ialspp":
-        eig, block_eig = ialspp.fold_in_prep(model, state)
+        eig, block_eig, _ = ialspp.fold_in_prep(model, state)
         assert block_eig is None
         return eig
-    return model._fold_in_prep(state)
+    return model._fold_in_prep(state)[0]
 
 
 @pytest.mark.parametrize("key", oracle.CARRIED_BASIS)
@@ -211,7 +215,7 @@ def test_default_fold_in_prep_is_an_exact_eigh_of_the_frozen_gramian(
         stale, key):
     # the fold-in's eigenbasis of the frozen item Gramian: at the JAX
     # package's 0.08 warm from the stale carried basis, and off the
-    # Gramian by more than 1e-5; at the default no refresh, within 1e-5
+    # Gramian by more than 1e-6; at the default no refresh, within 1e-6
     # of it and orthogonal within 1e-4; the fold-in equal, bit for bit,
     # to one handed a fresh sym_eigh
     state, dd, fold = stale
@@ -227,21 +231,21 @@ def test_default_fold_in_prep_is_an_exact_eigh_of_the_frozen_gramian(
     woodbury.reset_solve_paths()
     q, lam = _fold_in_eig(key, models[JAX_EIG_REFRESH_TOL], state)
     assert woodbury.SOLVE_PATHS["refresh_warm"] == 1
-    assert float(eigh.reconstruction_error(lam, q, gram)) > 1e-5
+    assert float(eigh.reconstruction_error(lam, q, gram)) > 1e-6
     woodbury.reset_solve_paths()
     m = models[None]
     q, lam = _fold_in_eig(key, m, state)
     assert woodbury.SOLVE_PATHS["refresh_warm"] == 0
     assert woodbury.SOLVE_PATHS["refresh_cold"] == 0
-    assert float(eigh.reconstruction_error(lam, q, gram)) <= 1e-5
+    assert float(eigh.reconstruction_error(lam, q, gram)) <= 1e-6
     assert eigh.orthogonality(q) <= 1e-4
     lam_f, q_f = woodbury.sym_eigh(gram)
     fresh = (q_f, torch.clamp(lam_f, min=0.0))
     assert torch.equal(q, fresh[0]) and torch.equal(lam, fresh[1])
     pf = m._permute_fold(fold)
     got = m._fold_in(state, pf)
-    want = m._fold_in(state, pf, prep=(fresh, None) if key == "ialspp"
-                      else fresh)
+    want = m._fold_in(state, pf, prep=(fresh, None, None)
+                      if key == "ialspp" else (fresh, None))
     assert torch.equal(got, want)
 
 

@@ -30,6 +30,7 @@ PARENTS = {
     "sweep.woodbury": {"epoch.u_sweep", "epoch.v_sweep"},
     "sweep.direct": {"epoch.u_sweep", "epoch.v_sweep"},
     "sweep.block": {"epoch.u_sweep", "epoch.v_sweep"},
+    "sweep.rotate_table": {"epoch.u_sweep", "epoch.v_sweep"},
     "kernel.chol_inverse": {"sweep.woodbury", "sweep.direct",
                             "sweep.block"},
     "host_sync.eigh": {"sweep.eigh"},

@@ -250,16 +250,18 @@ def test_solve_sweep_woodbury_and_rotated_match_direct(dense, paths):
     w_gram = u.T @ (u * dual_t[:, None])
     norm_dual = dual_t / dd.user_hist_size.clamp(min=1.0)
 
-    def params_fn(b, pre=None):
+    def params_fn(b, pre, other):
         reg = torch.full((b.n_rows,), 0.05)
-        return tcommon.params_weighted_item(u, b, reg, 0.01, norm_dual)
+        return tcommon.params_weighted_item(other, b, reg, 0.01, norm_dual)
 
     z = torch.zeros((ds.num_items, d))
     eig = twb.maybe_eigh(w_gram, d, use_cg=False)
-    x_eig = tcommon.solve_sweep(z, dd.by_item, params_fn, w_gram, eig=eig)
+    x_eig = tcommon.solve_sweep(z, dd.by_item, params_fn, w_gram,
+                                table_other=u, eig=eig)
     assert paths["woodbury"] > 0 and paths["rotated"] > 0
     assert paths["direct"] == 0
-    x_direct = tcommon.solve_sweep(z, dd.by_item, params_fn, w_gram)
+    x_direct = tcommon.solve_sweep(z, dd.by_item, params_fn, w_gram,
+                                   table_other=u)
     assert paths["direct"] == sum(b.n_rows for b in dd.by_item)
     np.testing.assert_allclose(x_eig.numpy(), x_direct.numpy(), rtol=5e-3,
                                atol=5e-4)
@@ -277,10 +279,10 @@ def test_solve_sweep_with_eig_matches_jax(dense, side):
         gram = items.T @ items
         tb, jb = dd.by_user, jdd.by_user
 
-        def tparams(b, pre=None):
+        def tparams(b, pre, other_t):
             w = _t(dual)[b.row_ids.clamp(max=n_rows - 1)]
             return tcommon.params_weighted_mean(
-                _t(other), b, torch.full((b.n_rows,), 0.05), 0.01, w,
+                other_t, b, torch.full((b.n_rows,), 0.05), 0.01, w,
                 pre=pre)
 
         def jparams(b, pre=None):
@@ -295,9 +297,9 @@ def test_solve_sweep_with_eig_matches_jax(dense, side):
             dd.user_hist_size.numpy(), 1.0).astype(np.float32)
         tb, jb = dd.by_item, jdd.by_item
 
-        def tparams(b, pre=None):
+        def tparams(b, pre, other_t):
             return tcommon.params_weighted_item(
-                _t(other), b, torch.full((b.n_rows,), 0.05), 0.01,
+                other_t, b, torch.full((b.n_rows,), 0.05), 0.01,
                 _t(norm_dual))
 
         def jparams(b, pre=None):
@@ -307,7 +309,8 @@ def test_solve_sweep_with_eig_matches_jax(dense, side):
     z = np.zeros((n_rows, d), np.float32)
     teig = twb.maybe_eigh(_t(gram), d, use_cg=False)
     jeig = jwb.maybe_eigh(jnp.asarray(gram), d, use_cg=False)
-    got = tcommon.solve_sweep(_t(z), tb, tparams, _t(gram), eig=teig)
+    got = tcommon.solve_sweep(_t(z), tb, tparams, _t(gram),
+                              table_other=_t(other), eig=teig)
     want = jcommon.solve_sweep(jnp.asarray(z), jb, jparams,
                                jnp.asarray(gram), eig=jeig)
     # the f32 parity bound of the SAFER2 oracle at dim 128

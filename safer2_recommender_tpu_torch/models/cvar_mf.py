@@ -19,6 +19,14 @@ from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin, _log)
 from safer2_recommender_tpu_torch.ops import assemble, quantile, woodbury
 from safer2_recommender_tpu_torch.utils.device import f32_matmul
+from safer2_recommender_tpu_torch.utils.logging import span
+
+
+def _grad_span(b, dim: int):
+    """The ``sweep.grad`` span of one bucket's gather-and-step: its
+    padded ``rows``, ``width``, and whether it streams (``wide``)."""
+    return span("sweep.grad", rows=b.n_rows, width=b.width,
+                wide=assemble.is_wide(b, dim))
 
 
 class CVaRMF(SaferFamilyMixin, Recommender):
@@ -40,14 +48,16 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         item_emb = assemble.cast(item_emb, self.asm_dtype)   # once a sweep
 
         def body(ue, b, pre):
-            w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
-            p = common.params_weighted_mean(
-                item_emb, b, torch.full((b.n_rows,), reg, device=ue.device),
-                cfg.uobs_weight, w, dtype=self.asm_dtype, pre=pre)
-            u_rows = assemble.read_rows(ue, b)
-            grad = common.grad_from_params(p, gramian, u_rows)
-            return assemble.scatter_bucket(ue, b,
-                                           u_rows - cfg.stepsize * grad)
+            with _grad_span(b, cfg.dim):
+                w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
+                p = common.params_weighted_mean(
+                    item_emb, b,
+                    torch.full((b.n_rows,), reg, device=ue.device),
+                    cfg.uobs_weight, w, dtype=self.asm_dtype, pre=pre)
+                u_rows = assemble.read_rows(ue, b)
+                grad = common.grad_from_params(p, gramian, u_rows)
+                return assemble.scatter_bucket(ue, b,
+                                               u_rows - cfg.stepsize * grad)
 
         return common.share_rows(
             common.sweep_apply(buckets, pre_list, ue.clone(), body),
@@ -61,14 +71,15 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         user_c = assemble.cast(user_emb, self.asm_dtype)     # once a sweep
 
         def body(v, b, _):
-            reg = self._item_reg(dd.item_reg, b.row_ids)
-            p = common.params_weighted_item(user_c, b, reg,
-                                            cfg.uobs_weight, norm_dual,
-                                            dtype=self.asm_dtype)
-            v_rows = assemble.read_rows(v, b)
-            grad = common.grad_from_params(p, w_gram, v_rows)
-            return assemble.scatter_bucket(v, b,
-                                           v_rows - cfg.stepsize * grad)
+            with _grad_span(b, cfg.dim):
+                reg = self._item_reg(dd.item_reg, b.row_ids)
+                p = common.params_weighted_item(user_c, b, reg,
+                                                cfg.uobs_weight, norm_dual,
+                                                dtype=self.asm_dtype)
+                v_rows = assemble.read_rows(v, b)
+                grad = common.grad_from_params(p, w_gram, v_rows)
+                return assemble.scatter_bucket(v, b,
+                                               v_rows - cfg.stepsize * grad)
 
         return common.share_rows(
             common.sweep_apply(dd.by_item, None, v.clone(), body),
@@ -80,24 +91,33 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         of the next epoch, where the loss pass shares the U-step's
         gather. Epoch 0 keeps the carried xi (the reference's prev_xi_
         is 0-initialized and Initialize computes only the loss,
-        cvar_mf.h:710-726), so the update sequence is identical."""
-        cfg = self.cfg
-        present = dd.user_hist_size > 0
-        loss, pre = common.gather_and_losses(
-            state.item_emb, dd.by_user, state.user_emb,
-            state.item_gramian, dd.num_users, cfg.uobs_weight, halve=True,
-            dtype=self.asm_dtype)
-        xi = state.xi if state.steps == 0 else quantile.exact_quantile(
-            loss, cfg.alpha)
-        dual = torch.where(present, (loss - xi >= 0.0).to(torch.float32),
-                           state.dual_weight)
-        u = self._grad_step_u(state.user_emb, state.item_emb,
-                              state.item_gramian, dd.by_user, dual,
-                              pre_list=pre)
+        cvar_mf.h:710-726), so the update sequence is identical. Each
+        phase is a device-timed span (``utils/logging.py::EPOCH_PHASES``),
+        and each bucket of the two gradient steps a ``sweep.grad``."""
+        cfg, dev = self.cfg, self.device
+        with span("epoch.loss", dev):
+            loss, pre = common.gather_and_losses(
+                state.item_emb, dd.by_user, state.user_emb,
+                state.item_gramian, dd.num_users, cfg.uobs_weight,
+                halve=True, dtype=self.asm_dtype)
+        with span("epoch.xi", dev):
+            xi = state.xi if state.steps == 0 else quantile.exact_quantile(
+                loss, cfg.alpha)
+        with span("epoch.z", dev):
+            dual = torch.where(dd.user_hist_size > 0,
+                               (loss - xi >= 0.0).to(torch.float32),
+                               state.dual_weight)
+        with span("epoch.u_sweep", dev):
+            u = self._grad_step_u(state.user_emb, state.item_emb,
+                                  state.item_gramian, dd.by_user, dual,
+                                  pre_list=pre)
         del pre
         # StepV uses the pre-update user embeddings (cvar_mf.h:282-295)
-        v = self._grad_step_v(state.item_emb, state.user_emb, dd, dual)
-        return state.replace(user_emb=u, item_emb=v, item_gramian=v.T @ v,
+        with span("epoch.v_sweep", dev):
+            v = self._grad_step_v(state.item_emb, state.user_emb, dd, dual)
+        with span("epoch.gram", dev):
+            gram = v.T @ v
+        return state.replace(user_emb=u, item_emb=v, item_gramian=gram,
                              user_loss=loss, dual_weight=dual, xi=xi,
                              steps=state.steps + 1)
 

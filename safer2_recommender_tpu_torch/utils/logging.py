@@ -16,9 +16,11 @@ fixed strings:
   epoch                       one ``_epoch`` call (``Recommender.
                               train_epochs`` / ``train_epoch``); attrs
                               ``model``, ``steps``; device-timed
-    epoch.loss / .xi / .z /   SAFER2's and SAFER2++'s phases, in that
-    .u_sweep / .v_sweep /     order (``EPOCH_PHASES``); device-timed
-    .gram
+    epoch.loss / .xi / .z /   SAFER2's, SAFER2++'s and CVaR-MF's phases,
+    .u_sweep / .v_sweep /     in that order (``EPOCH_PHASES``; CVaR-MF's
+    .gram                     xi is its exact quantile, its sweeps the
+                              gradient steps, the V sweep with its
+                              ``U^T diag(z) U``); device-timed
       sweep.eigh              ``woodbury.maybe_eigh``
       sweep.rotate_table      the frozen table's one rotation into the
                               eigenbasis (``models/common.py::
@@ -26,6 +28,10 @@ fixed strings:
       sweep.woodbury          a bucket of ``solve_sweep``'s Woodbury loop
       sweep.direct            a solve group of ``solve_sweep``
       sweep.block             a bucket of ``block_sweep_frozen``
+      sweep.grad              a bucket of CVaR-MF's gradient step
+                              (``_grad_step_u``, ``_grad_step_v``): its
+                              gather and ``u - eta (A u - rhs)``; attrs
+                              ``rows``, ``width``, ``wide``
         kernel.chol_inverse   a ``block_chol.chol_inverse_small`` call;
                               attrs ``N``, ``r``
   host_sync.<site>            a read of a device value to the host
@@ -98,7 +104,8 @@ class Timer:
 
 # ---- spans -----------------------------------------------------------------
 
-# The device-timed phases of SAFER2's and SAFER2++'s epoch, in order.
+# The device-timed phases of SAFER2's, SAFER2++'s and CVaR-MF's epoch,
+# in order.
 EPOCH_PHASES = ("epoch.loss", "epoch.xi", "epoch.z", "epoch.u_sweep",
                 "epoch.v_sweep", "epoch.gram")
 

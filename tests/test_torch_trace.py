@@ -31,12 +31,13 @@ PARENTS = {
     "sweep.direct": {"epoch.u_sweep", "epoch.v_sweep"},
     "sweep.block": {"epoch.u_sweep", "epoch.v_sweep"},
     "sweep.rotate_table": {"epoch.u_sweep", "epoch.v_sweep"},
+    "sweep.grad": {"epoch.u_sweep", "epoch.v_sweep"},
     "kernel.chol_inverse": {"sweep.woodbury", "sweep.direct",
                             "sweep.block"},
     "host_sync.eigh": {"sweep.eigh"},
     "host_sync.armijo": {"epoch.xi"},
     "host_sync.scatter": {"epoch.loss", "sweep.woodbury", "sweep.direct",
-                          "sweep.block"},
+                          "sweep.block", "sweep.grad"},
 }
 
 
@@ -160,6 +161,74 @@ def test_every_model_has_an_epoch_span(data, name):
     assert all(r.epoch is not None for r in recs)
 
 
+def _cvar_mf_epoch(dd, ds, steps_before: int):
+    """One profiled CVaR-MF epoch after ``steps_before`` others: (model,
+    its spans, the [N, r] of every ``chol_inverse_small`` call)."""
+    model = get_model("cvar_mf", _config(128).replace(stepsize=0.4),
+                      ds.num_users, ds.num_items, device=dd.device)
+    model.initialize(dd)
+    model.train_epochs(dd, steps_before)
+    calls, orig = [], block_chol.chol_inverse_small
+
+    def counted(a, ridge):
+        calls.append((int(a.shape[0]), int(a.shape[1])))
+        return orig(a, ridge)
+
+    clear_spans()
+    block_chol.chol_inverse_small = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            model.train_epochs(dd, 1)
+    finally:
+        block_chol.chol_inverse_small = orig
+    recs = spans()
+    clear_spans()
+    return model, recs, calls
+
+
+@pytest.mark.parametrize("steps_before", [0, 1])
+def test_cvar_mf_epoch_emits_its_tree(data, steps_before):
+    # the six phases in order (the first epoch's xi is the carried one),
+    # a sweep.grad span for each bucket of both sweeps, and no solve
+    ds, dd = data
+    model, recs, calls = _cvar_mf_epoch(dd, ds, steps_before)
+    names = [r.name for r in recs]
+    assert set(names) <= set(PARENTS)
+    assert names[0] == "epoch" and names.count("epoch") == 1
+    assert recs[0].attrs == {"model": "cvar_mf", "steps": steps_before}
+    assert [n for n in names if n in EPOCH_PHASES] == list(EPOCH_PHASES)
+    for r in recs:
+        parent = None if r.parent is None else recs[r.parent]
+        assert (parent and parent.name) in PARENTS[r.name], r.name
+        if parent is not None:
+            assert parent.start <= r.start and r.end <= parent.end
+        assert r.device_ms is None
+    grads = [r for r in recs if r.name == "sweep.grad"]
+    by_side = Counter(recs[r.parent].name for r in grads)
+    assert by_side == {"epoch.u_sweep": len(dd.by_user),
+                       "epoch.v_sweep": len(dd.by_item)}
+    buckets = list(dd.by_user) + list(dd.by_item)
+    assert [(r.attrs["rows"], r.attrs["width"]) for r in grads] == [
+        (b.n_rows, b.width) for b in buckets]
+    assert all(r.attrs["wide"] is False for r in grads)
+    assert "kernel.chol_inverse" not in names and calls == []
+    assert not {"sweep.eigh", "sweep.woodbury", "sweep.direct",
+                "sweep.block", "host_sync.armijo"} & set(names)
+
+
+def test_cvar_mf_marks_a_wide_bucket(data, monkeypatch):
+    # a bucket that streams its history in column chunks says so
+    from safer2_recommender_tpu_torch.ops import assemble
+    ds, dd = data
+    monkeypatch.setattr(assemble, "WIDE_SLAB_BYTES", 1 << 12)
+    _, recs, _ = _cvar_mf_epoch(dd, ds, 1)
+    grads = [r for r in recs if r.name == "sweep.grad"]
+    buckets = list(dd.by_user) + list(dd.by_item)
+    wide = [assemble.is_wide(b, 128) for b in buckets]
+    assert any(wide)
+    assert [r.attrs["wide"] for r in grads] == wide
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["safer2", "safer2pp"])
 def test_spans_hold_on_the_card(name):
@@ -191,6 +260,46 @@ def test_spans_hold_on_the_card(name):
                              if k.startswith("host_sync."))
     assert names["kernel.chol_inverse"] == \
         block_chol.total_launches() - launches > 0
+    epoch = next(r.device_ms for r in recs if r.name == "epoch")
+    phases = sum(r.device_ms for r in recs if r.name in EPOCH_PHASES)
+    assert epoch > 0 and abs(phases - epoch) <= 0.01 * epoch
+
+
+@pytest.mark.cuda
+def test_cvar_mf_spans_hold_on_the_card():
+    # every synchronizing call of a CVaR-MF epoch is a host_sync span,
+    # the phases' device ms tile the epoch's, and no solve launches
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: device-timed spans and "
+                    "synchronizing calls exist only on the card")
+    device = torch.device("cuda", 0)
+    # large enough that the host's time between the phases, while the
+    # device waits, stays under 1% of the epoch (at 20,000 users an
+    # epoch is ~65 ms, and that time ~1 ms of it)
+    ds = Dataset(*powerlaw_dataset(100_000, 20_000, mean_hist=40, seed=3))
+    dd = DeviceData.build(ds, device=device, dim=512)
+    cfg = _config(512).replace(stepsize=0.4)
+    model = _model("cvar_mf", dd, ds.num_users, ds.num_items, cfg)
+    torch.cuda.synchronize()
+    clear_spans()
+    launches = block_chol.total_launches()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                model.train_epochs(dd, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    recs = spans()
+    clear_spans()
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    names = Counter(r.name for r in recs)
+    assert len(syncs) == sum(n for k, n in names.items()
+                             if k.startswith("host_sync."))
+    assert block_chol.total_launches() == launches
+    assert names["sweep.grad"] == len(dd.by_user) + len(dd.by_item)
     epoch = next(r.device_ms for r in recs if r.name == "epoch")
     phases = sum(r.device_ms for r in recs if r.name in EPOCH_PHASES)
     assert epoch > 0 and abs(phases - epoch) <= 0.01 * epoch

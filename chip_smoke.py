@@ -7,10 +7,10 @@ on one NVIDIA GPU:
 Phases, each printing lines to stdout tagged with its name:
   1. device: requires CUDA, turns TF32 off, prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles both kernels from csrc/ (sm_90a), one nvcc each,
-     started together, and prints what nvcc -Xptxas -v says of each
-     kernel of chol_inverse.cu and bdot.cu (registers, shared memory,
-     spills);
+  2. build: compiles the three kernel sources from csrc/ (sm_90a), one
+     nvcc each, started together, and prints what nvcc -Xptxas -v says
+     of each kernel of chol_inverse.cu, bdot.cu and grad_gather.cu
+     (registers, shared memory, spills);
   3. kernel: compares the inverse-Cholesky kernel with its plain torch
      version on the card at r = 8/16/32/64 (probes/chol_inverse.py), at
      N = 4096 and the ragged N (0, 1, one block's systems +/- 1, 4097),
@@ -29,6 +29,14 @@ Phases, each printing lines to stdout tagged with its name:
      card); the probe of phase 18 times both;
   5. solve: spd_solve against a float64 torch.linalg.solve at
      d = 8/32/64/128/512;
+ 33. grad_gather (run after phase 5): CVaR-MF's gather-matvec kernel
+     (probes/grad_gather.py) at the MSD-shape workload's buckets, dim
+     512: per side a bucket of each of the three most frequent shapes
+     and the one with the most real slots (on the item side the split
+     [8 x 262144] head), stepped by the kernel and by the plain route
+     (params_weighted_*, grad_from_params, scatter_bucket) from the same
+     table, within the probe's CHECK_TOL (1e-5) of the plain step's
+     largest entry; each one's kernel ms beside its bounds;
   6. train: the port's CLI in-process, SAFER2 on the bundled ML-1M split
      at the README's dim-32 config for 10 epochs; NDCG@20 >= 0.2 and
      mean dual weight within alpha +/- 0.02 after every epoch;
@@ -53,7 +61,8 @@ Phases, each printing lines to stdout tagged with its name:
      ML-1M at dim 32 (block 8 for the ++ models) at the reference tests'
      configs, 10 epochs (CVaR-MF: 50): NDCG@20 >= 0.2, finite tables,
      SAFER2++'s mean dual weight within alpha +/- 0.02 after every
-     epoch, kernel launches by r;
+     epoch, kernel launches by r; CVaR-MF's every epoch launches the
+     gather-matvec kernel once a bucket, the other models never;
  12. interleaved: the reference-order ++ sweep (--block_interleaved 1)
      through the CLI: SAFER2++ on ML-1M at dim 512, block 64, the
      README's MSD config, 50 epochs (NDCG@20 >= 0.2, mean dual weight
@@ -76,7 +85,8 @@ Phases, each printing lines to stdout tagged with its name:
      longest histories (the fold-in's 8 blockwise sweeps); per model the
      epoch ms, the rows by solve path, the kernel launches by r and how
      many sit under one wave, the peak device memory; finite tables,
-     wide rows, and r = 64 launches for both ++ models;
+     wide rows, and r = 64 launches for both ++ models; gather-matvec
+     launches as in phase 11;
  15. server: the PyTorch path after training: each of the six ML-1M
      dim-32 models of phases 6 and 11, the two interleaved models of
      phase 12 and the two CG models of phase 13, whose CLI runs saved a
@@ -611,6 +621,71 @@ def check_block_launches(tag, per_epoch, dim, bs, r):
     return per_epoch[0][0][r]
 
 
+@contextlib.contextmanager
+def grad_launches_per_epoch():
+    """Set the gather-matvec kernel's launch count to 0 and record, for
+    each ``train_epoch`` call while open, its launches and the
+    DeviceData's bucket count (user + item buckets)."""
+    from safer2_recommender_tpu_torch.models.base import Recommender
+    from safer2_recommender_tpu_torch.ops import grad_gather
+
+    out, epoch = [], Recommender.train_epoch
+
+    def counted(self, dd):
+        before = grad_gather.LAUNCHES
+        epoch(self, dd)
+        out.append((grad_gather.LAUNCHES - before,
+                    len(dd.by_user) + len(dd.by_item)))
+
+    grad_gather.LAUNCHES = 0
+    Recommender.train_epoch = counted
+    try:
+        yield out
+    finally:
+        Recommender.train_epoch = epoch
+
+
+def check_grad_launches(tag, per_epoch, routed: bool) -> int:
+    """Every epoch launched the gather-matvec kernel once a bucket
+    (``routed``: CVaR-MF on the card) or never, and nothing outside the
+    epochs launched it. Returns the launches."""
+    from safer2_recommender_tpu_torch.ops import grad_gather
+
+    check(bool(per_epoch), f"{tag}: no epoch was recorded")
+    for i, (launches, buckets) in enumerate(per_epoch):
+        want = buckets if routed else 0
+        check(launches == want, f"{tag} epoch {i}: {launches} gather-matvec "
+              f"launches, want {want} ({buckets} buckets)")
+    total = sum(n for n, _ in per_epoch)
+    check(grad_gather.LAUNCHES == total, f"{tag}: {grad_gather.LAUNCHES} "
+          f"gather-matvec launches, {total} of them in epochs")
+    return total
+
+
+def phase_grad_gather(device) -> list:
+    """Phase 33: the probe's checks and times at the MSD-shape buckets."""
+    import torch
+
+    from safer2_recommender_tpu_torch.ops import grad_gather
+    from safer2_recommender_tpu_torch.probes import grad_gather as gg_probe
+
+    grad_gather.LAUNCHES = 0
+    rows = gg_probe.run(device=device)
+    for row in rows:
+        check(row["ok"], f"grad_gather {row['side']} {row['label']} "
+              f"[{row['rows']} x {row['width']}]: max rel err "
+              f"{row['max_rel_err']:.3e} > {gg_probe.CHECK_TOL:g}")
+    check(any(r["side"] == "item" and r["splits"] > 1 for r in rows),
+          "grad_gather: no split item bucket among the checked")
+    check(grad_gather.LAUNCHES > 0, "grad_gather: the kernel never launched")
+    say("grad_gather", f"{len(rows)} MSD-shape buckets, both sides, kernel "
+        f"against the plain route within {gg_probe.CHECK_TOL:g} of the "
+        f"step (largest {max(r['max_rel_err'] for r in rows):.3e}); "
+        f"{grad_gather.LAUNCHES} launches")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def finite_tables(state) -> bool:
     import torch
 
@@ -833,8 +908,11 @@ def phase_models(cli, block_chol, ckpt_root):
     out, trained = {}, {}
     for name, (args, epochs) in MODEL_RUNS.items():
         block_chol.reset_launches()
-        res = train(cli, 32, epochs, ["--model_name", name] + args,
-                    ckpt=os.path.join(ckpt_root, name))
+        with grad_launches_per_epoch() as per_epoch:
+            res = train(cli, 32, epochs, ["--model_name", name] + args,
+                        ckpt=os.path.join(ckpt_root, name))
+        grad = check_grad_launches(f"{name} dim 32", per_epoch,
+                                   name == "cvar_mf")
         launches = dict(block_chol.LAUNCHES)
         state = res.model.state
         check(res.model.name == name, f"{name}: got a {res.model.name}")
@@ -853,9 +931,10 @@ def phase_models(cli, block_chol, ckpt_root):
             + (f" (gate {ALPHA} +/- {DUAL_TOL}, every epoch)"
                if name == "safer2pp" else "")
             + f"; epoch ms {res.epoch_ms[:10]}; kernel launches by r "
-            f"{launches}")
+            f"{launches}; gather-matvec launches {grad} ({per_epoch[0][1]} "
+            f"buckets an epoch)")
         out[name] = dict(ndcg20=ndcg20, epoch_ms=res.epoch_ms,
-                         launches=launches,
+                         launches=launches, grad_gather_launches=grad,
                          mean_weights=res.mean_weights[-3:])
         trained[name] = res.model
     return out, trained
@@ -900,12 +979,15 @@ def phase_synth_models(block_chol, woodbury, device, workload, wave):
         epoch_ms, fold = [], None
         with probes.recorded_chol_shapes() as shapes:
             model.initialize(dd)
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                model.train_epoch(dd)
-                torch.cuda.synchronize()
-                epoch_ms.append((time.perf_counter() - t0) * 1000)
+            with grad_launches_per_epoch() as per_epoch:
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.train_epoch(dd)
+                    torch.cuda.synchronize()
+                    epoch_ms.append((time.perf_counter() - t0) * 1000)
+            grad = check_grad_launches(f"{name} at 50k", per_epoch,
+                                       name == "cvar_mf")
             train_launches = dict(block_chol.LAUNCHES)
             train_paths = dict(woodbury.SOLVE_PATHS)
             if name in ("safer2pp", "ialspp"):
@@ -949,10 +1031,12 @@ def phase_synth_models(block_chol, woodbury, device, workload, wave):
                f"-{int(sizes.max())} items) + scoring {fold['ms']:.1f} ms, "
                f"paths {fold['paths']}, launches by r {fold['launches']}"
                if fold else "")
-            + f"; launches under one wave by r {under} of {launches}; peak "
-            f"device memory {peak} B")
+            + f"; launches under one wave by r {under} of {launches}; "
+            f"gather-matvec launches {grad} ({per_epoch[0][1]} buckets an "
+            f"epoch); peak device memory {peak} B")
         out[name] = dict(epoch_ms=epoch_ms, paths=train_paths,
                          launches=train_launches, fold_in=fold,
+                         grad_gather_launches=grad,
                          total_launches=sum(launches.values()),
                          launch_histogram=by_r, peak_bytes=peak,
                          shapes=shapes)
@@ -2460,32 +2544,43 @@ def main() -> int:
 
 
 def run_phases(device, ckpt_root: str) -> None:
-    """Phases 2-30; the kernel JSON line at the end. The CLI runs of
+    """Phases 2-33; the kernel JSON line at the end. The CLI runs of
     phases 6, 11, 12 and 13 save their checkpoints under
     ``ckpt_root``."""
     import torch
 
     from safer2_recommender_tpu_torch import cli, probes
-    from safer2_recommender_tpu_torch.ops import bdot, block_chol, woodbury
+    from safer2_recommender_tpu_torch.ops import (bdot, block_chol,
+                                                  grad_gather, woodbury)
     from safer2_recommender_tpu_torch.probes import bdot as bdot_probe
     from safer2_recommender_tpu_torch.probes import chol_inverse as chol_probe
+    from safer2_recommender_tpu_torch.probes import grad_gather as gg_probe
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
-        builds = [ex.submit(block_chol.build_kernel), ex.submit(bdot.build_kernel)]
+    with ThreadPoolExecutor(6) as ex:
+        builds = [ex.submit(block_chol.build_kernel),
+                  ex.submit(bdot.build_kernel),
+                  ex.submit(grad_gather.build_kernel)]
         ptxas = ex.submit(chol_probe.ptxas_report)
         bdot_ptxas = ex.submit(bdot_probe.ptxas_report)
+        gg_ptxas = ex.submit(gg_probe.ptxas_report)
         for f in builds:
             f.result()
         ptxas, bdot_ptxas = ptxas.result(), bdot_ptxas.result()
-    say("build", f"chol_inverse.cu and bdot.cu built (in parallel) and "
-        f"loaded in {time.perf_counter() - t0:.1f} s")
+        gg_ptxas = gg_ptxas.result()
+    say("build", f"chol_inverse.cu, bdot.cu and grad_gather.cu built (in "
+        f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
     say("build", "nvcc -Xptxas -v of chol_inverse.cu: " + " | ".join(ptxas))
     say("build", "nvcc -Xptxas -v of bdot.cu: " + " | ".join(bdot_ptxas))
+    say("build", "nvcc -Xptxas -v of grad_gather.cu: " + " | ".join(gg_ptxas))
 
     by_r = phase_kernel(chol_probe, device)
     bdot_err = phase_bdot(bdot, device)
     phase_solve(block_chol, chol_probe, device)
+    t0 = time.perf_counter()
+    gg_rows = phase_grad_gather(device)
+    gg_probe_launches = grad_gather.LAUNCHES
+    say("grad_gather", f"phase {time.perf_counter() - t0:.1f} s")
 
     block_chol.reset_launches()
     with probes.recorded_chol_shapes() as shapes:
@@ -2725,6 +2820,8 @@ def run_phases(device, ckpt_root: str) -> None:
         f": max abs err {served_err:.3e}, each system's rel err within "
         f"{REL_TOL:g}")
     head = main_t["largest_ml1m_dim512"]
+    gg_head = next(r for r in gg_rows
+                   if r["side"] == "item" and r["label"] == "largest")
     probe_rows = {(row["h"], row["precision"]): row for row in probe["bdot"]}
     bdot_head = probe_rows[128, "highest"]
     print(json.dumps({"kernels": [{
@@ -2877,6 +2974,35 @@ def run_phases(device, ckpt_root: str) -> None:
             for h in bdot.SIZES},
         "ptxas": bdot_ptxas,
         "solver_products": probe["solver"],
+    }, {
+        "name": "grad_gather",
+        "route": "cuda",
+        "source": "safer2_recommender_tpu_torch/csrc/grad_gather.cu",
+        "replaces": ("none: the JAX package leaves CVaR-MF's gradient step "
+                     "to XLA (safer2_recommender_tpu/models/cvar_mf.py:36 "
+                     "_grad_step_u, :53 _grad_step_v)"),
+        "launches": (gg_probe_launches
+                     + models["cvar_mf"]["grad_gather_launches"]
+                     + synth_models["cvar_mf"]["grad_gather_launches"]),
+        "launches_by_path": {
+            "probe_msd_buckets": gg_probe_launches,
+            "ml1m_dim32_cvar_mf": models["cvar_mf"]["grad_gather_launches"],
+            "synth50k_cvar_mf": synth_models["cvar_mf"][
+                "grad_gather_launches"],
+            "other_models": {
+                path: {n: m["grad_gather_launches"] for n, m in ms.items()
+                       if n != "cvar_mf"}
+                for path, ms in (("ml1m_dim32", models),
+                                 ("synth50k", synth_models))}},
+        "max_rel_err": max(r["max_rel_err"] for r in gg_rows),
+        "ms": gg_head["kernel_ms"],
+        "plain_ms": gg_head["plain_ms"],
+        "bound_ms": gg_head["gathered_ms"],
+        "bound_by": "gathered rows from device memory at 3.35 TB/s",
+        "compulsory_bound_ms": gg_head["compulsory_ms"],
+        "shape": [gg_head["rows"], gg_head["width"], 512],
+        "main_path_shapes": gg_rows,
+        "ptxas": gg_ptxas,
     }]}), flush=True)
 
 

@@ -17,7 +17,8 @@ from safer2_recommender_tpu_torch.data.dataset import DeviceData, FoldInData
 from safer2_recommender_tpu_torch.models import common
 from safer2_recommender_tpu_torch.models.base import (MFState, Recommender,
                                                       SaferFamilyMixin, _log)
-from safer2_recommender_tpu_torch.ops import assemble, quantile, woodbury
+from safer2_recommender_tpu_torch.ops import (assemble, grad_gather, quantile,
+                                              woodbury)
 from safer2_recommender_tpu_torch.utils.device import f32_matmul
 from safer2_recommender_tpu_torch.utils.logging import span
 
@@ -27,6 +28,12 @@ def _grad_span(b, dim: int):
     padded ``rows``, ``width``, and whether it streams (``wide``)."""
     return span("sweep.grad", rows=b.n_rows, width=b.width,
                 wide=assemble.is_wide(b, dim))
+
+
+def _fresh(table):
+    """The copy a sweep steps in place (contiguous, as the kernel writes
+    it)."""
+    return table.clone(memory_format=torch.contiguous_format)
 
 
 class CVaRMF(SaferFamilyMixin, Recommender):
@@ -40,15 +47,23 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         _log.info("Xi:%s", float(self.state.xi))
 
     def _grad_step_u(self, ue, item_emb, gramian, buckets, dual,
-                     pre_list=None):
+                     pre_list=None, kernel=False):
         """Returns a NEW user table one gradient step from ``ue`` (the
-        ranks' rows shared on the buckets' mesh)."""
+        ranks' rows shared on the buckets' mesh). With ``kernel`` (see
+        ``_epoch``) a bucket is one ``grad_gather.user_step``, which
+        gathers no slab, and ``pre_list`` is unread."""
         cfg = self.cfg
         reg = self._user_reg()
         item_emb = assemble.cast(item_emb, self.asm_dtype)   # once a sweep
+        if kernel:
+            item_emb = item_emb.contiguous()
 
         def body(ue, b, pre):
             with _grad_span(b, cfg.dim):
+                if kernel:
+                    return grad_gather.user_step(
+                        ue, item_emb, b, gramian, cfg.stepsize, reg=reg,
+                        uobs=cfg.uobs_weight, dual=dual)
                 w = dual[b.row_ids.clamp(max=dual.shape[0] - 1)]
                 p = common.params_weighted_mean(
                     item_emb, b,
@@ -60,18 +75,29 @@ class CVaRMF(SaferFamilyMixin, Recommender):
                                                u_rows - cfg.stepsize * grad)
 
         return common.share_rows(
-            common.sweep_apply(buckets, pre_list, ue.clone(), body),
+            common.sweep_apply(buckets, pre_list, _fresh(ue), body),
             buckets)
 
-    def _grad_step_v(self, v, user_emb, dd: DeviceData, dual):
-        """Returns a NEW item table one gradient step from ``v``."""
+    def _grad_step_v(self, v, user_emb, dd: DeviceData, dual,
+                     kernel=False):
+        """Returns a NEW item table one gradient step from ``v``; with
+        ``kernel`` as ``_grad_step_u`` (``grad_gather.item_step``), with
+        every item's ridge made once a sweep."""
         cfg = self.cfg
         w_gram = user_emb.T @ (user_emb * dual[:, None])
         norm_dual = self._norm_dual(dd, dual)
         user_c = assemble.cast(user_emb, self.asm_dtype)     # once a sweep
+        if kernel:
+            user_c = user_c.contiguous()
+            reg_all = self._item_reg(dd.item_reg, torch.arange(
+                dd.item_reg.shape[0], device=v.device))
 
         def body(v, b, _):
             with _grad_span(b, cfg.dim):
+                if kernel:
+                    return grad_gather.item_step(
+                        v, user_c, b, w_gram, cfg.stepsize, reg=reg_all,
+                        uobs=cfg.uobs_weight, norm_dual=norm_dual)
                 reg = self._item_reg(dd.item_reg, b.row_ids)
                 p = common.params_weighted_item(user_c, b, reg,
                                                 cfg.uobs_weight, norm_dual,
@@ -82,7 +108,7 @@ class CVaRMF(SaferFamilyMixin, Recommender):
                                                v_rows - cfg.stepsize * grad)
 
         return common.share_rows(
-            common.sweep_apply(dd.by_item, None, v.clone(), body),
+            common.sweep_apply(dd.by_item, None, _fresh(v), body),
             dd.by_item)
 
     def _epoch(self, state: MFState, dd: DeviceData) -> MFState:
@@ -93,13 +119,20 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         is 0-initialized and Initialize computes only the loss,
         cvar_mf.h:710-726), so the update sequence is identical. Each
         phase is a device-timed span (``utils/logging.py::EPOCH_PHASES``),
-        and each bucket of the two gradient steps a ``sweep.grad``."""
+        and each bucket of the two gradient steps a ``sweep.grad``. The
+        route is chosen here, once: a float32 assembly of CUDA tables
+        takes the gather-matvec kernel in both steps
+        (``grad_gather.applies``), and then the U-step reads no slab, so
+        the loss pass keeps none."""
         cfg, dev = self.cfg, self.device
+        kernel = self.asm_dtype is None and grad_gather.applies(
+            state.item_emb)
         with span("epoch.loss", dev):
             loss, pre = common.gather_and_losses(
                 state.item_emb, dd.by_user, state.user_emb,
                 state.item_gramian, dd.num_users, cfg.uobs_weight,
-                halve=True, dtype=self.asm_dtype)
+                halve=True, dtype=self.asm_dtype,
+                budget_bytes=0 if kernel else common.FUSE_BUDGET_BYTES)
         with span("epoch.xi", dev):
             xi = state.xi if state.steps == 0 else quantile.exact_quantile(
                 loss, cfg.alpha)
@@ -110,11 +143,12 @@ class CVaRMF(SaferFamilyMixin, Recommender):
         with span("epoch.u_sweep", dev):
             u = self._grad_step_u(state.user_emb, state.item_emb,
                                   state.item_gramian, dd.by_user, dual,
-                                  pre_list=pre)
+                                  pre_list=pre, kernel=kernel)
         del pre
         # StepV uses the pre-update user embeddings (cvar_mf.h:282-295)
         with span("epoch.v_sweep", dev):
-            v = self._grad_step_v(state.item_emb, state.user_emb, dd, dual)
+            v = self._grad_step_v(state.item_emb, state.user_emb, dd, dual,
+                                  kernel=kernel)
         with span("epoch.gram", dev):
             gram = v.T @ v
         return state.replace(user_emb=u, item_emb=v, item_gramian=gram,

@@ -152,8 +152,8 @@ def describe_kernels(names: List[str], top: int = 2) -> str:
 def ptxas_report(src: str, kernel: str) -> List[str]:
     """What ``nvcc -Xptxas -v`` says of each kernel in ``src`` whose name
     matches the regular expression ``kernel``: one line per
-    instantiation (``name<template ints>``) with its registers, shared
-    memory, stack and spills."""
+    instantiation (``name<template ints>``, a bool as 0 or 1) with its
+    registers, shared memory, stack and spills."""
     cmd = [native.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", "/dev/null",
            src]
@@ -165,9 +165,10 @@ def ptxas_report(src: str, kernel: str) -> List[str]:
     for line in (res.stdout + res.stderr).splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(rf"({kernel})(?:I((?:Li\d+E)+)E)?", entry.group(1))
+            m = re.search(rf"({kernel})(?:I((?:L[ib]\d+E)+)E)?",
+                          entry.group(1))
             if m and m.group(2):
-                args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+                args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2)))
                 name = f"{m.group(1)}<{args}>"
             else:
                 name = m.group(1) if m else entry.group(1)

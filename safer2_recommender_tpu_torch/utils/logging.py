@@ -32,6 +32,9 @@ fixed strings:
                               (``_grad_step_u``, ``_grad_step_v``): its
                               gather and ``u - eta (A u - rhs)``; attrs
                               ``rows``, ``width``, ``wide``
+        kernel.grad_gather    a ``grad_gather`` step's launch (the
+                              gather-matvec kernel, on the card); attrs
+                              ``rows``, ``width``, ``splits``
         kernel.chol_inverse   a ``block_chol.chol_inverse_small`` call;
                               attrs ``N``, ``r``
   host_sync.<site>            a read of a device value to the host

@@ -34,6 +34,7 @@ PARENTS = {
     "sweep.grad": {"epoch.u_sweep", "epoch.v_sweep"},
     "kernel.chol_inverse": {"sweep.woodbury", "sweep.direct",
                             "sweep.block"},
+    "kernel.grad_gather": {"sweep.grad"},
     "host_sync.eigh": {"sweep.eigh"},
     "host_sync.armijo": {"epoch.xi"},
     "host_sync.scatter": {"epoch.loss", "sweep.woodbury", "sweep.direct",
@@ -300,6 +301,8 @@ def test_cvar_mf_spans_hold_on_the_card():
                              if k.startswith("host_sync."))
     assert block_chol.total_launches() == launches
     assert names["sweep.grad"] == len(dd.by_user) + len(dd.by_item)
+    # every bucket of both sweeps takes the gather-matvec kernel
+    assert names["kernel.grad_gather"] == names["sweep.grad"]
     epoch = next(r.device_ms for r in recs if r.name == "epoch")
     phases = sum(r.device_ms for r in recs if r.name in EPOCH_PHASES)
     assert epoch > 0 and abs(phases - epoch) <= 0.01 * epoch
